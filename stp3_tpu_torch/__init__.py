@@ -1,0 +1,12 @@
+"""stp3_tpu_torch: the PyTorch / CUDA port of stp3_tpu for NVIDIA Hopper.
+
+The JAX package ``stp3_tpu`` is the reference; every module here mirrors
+its counterpart's file layout, param tree (so ``utils/from_flax.py`` can
+load a flax tree leaf by leaf) and channels-last public layout. The two
+TPU kernels on the serving path are hand-written Hopper kernels:
+``ops/kernels/bev_splat.py`` (CUDA C++, ``csrc/bev_pool.cu``) and
+``ops/kernels/convnext_mlp.py`` (Triton). This package never imports
+jax or flax.
+"""
+
+__version__ = '0.1.0'
