@@ -38,6 +38,11 @@ def to_last(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(1, -1)
 
 
+def stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype of a norm's statistics: fp32, or the input's if wider."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def common_dtype(*tensors: torch.Tensor) -> torch.dtype:
     """flax's ``dtype=None`` rule: compute in the promoted type of input
     and params (bf16 input with fp32 params computes in fp32)."""
@@ -45,6 +50,20 @@ def common_dtype(*tensors: torch.Tensor) -> torch.dtype:
     for t in tensors[1:]:
         dt = torch.promote_types(dt, t.dtype)
     return dt
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            mask_shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element (or each slice of
+    ``mask_shape``, which broadcasts against x) with probability 1 - rate
+    and scale the kept ones by 1 / (1 - rate). The masks come from
+    ``generator``; without one (eval) it is the identity."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = x.shape if mask_shape is None else mask_shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -162,8 +181,9 @@ def num_groups(channels: int, preferred: int = 8) -> int:
 
 class GroupNorm(nn.Module):
     """``_GroupNormFast`` (stp3_tpu/layers/convolutions.py): eps 1e-6,
-    fp32 stats from per-channel sum / sum-of-squares, var = E[x^2] - E[x]^2,
-    applied as one per-channel multiply-add in the promoted dtype.
+    fp32 stats (float64 for a float64 input) from per-channel sum /
+    sum-of-squares, var = E[x^2] - E[x]^2, applied as one per-channel
+    multiply-add in the promoted dtype.
     Channels-first input (B, C, ...); stats over every non-(B, C) axis."""
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-6):
@@ -181,15 +201,16 @@ class GroupNorm(nn.Module):
         b, c = x.shape[:2]
         g = self.groups
         red = tuple(range(2, x.ndim))
-        x32 = x.float()
+        st = stats_dtype(x)
+        x32 = x.to(st)
         s1 = x32.sum(red)
         s2 = (x32 * x32).sum(red)
         n = (x.numel() // (b * c)) * (c // g)
         mean = s1.reshape(b, g, c // g).sum(-1) / n
         var = s2.reshape(b, g, c // g).sum(-1) / n - mean * mean
         inv = torch.rsqrt(var + self.eps)
-        a = inv.repeat_interleave(c // g, -1) * self.scale.float()
-        b2 = self.bias.float() - mean.repeat_interleave(c // g, -1) * a
+        a = inv.repeat_interleave(c // g, -1) * self.scale.to(st)
+        b2 = self.bias.to(st) - mean.repeat_interleave(c // g, -1) * a
         shape = (b, c) + (1,) * (x.ndim - 2)
         dt = common_dtype(x, self.scale)
         return x.to(dt) * a.reshape(shape).to(dt) + b2.reshape(shape).to(dt)
@@ -197,8 +218,9 @@ class GroupNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: eps 1e-6 (torch's default is 1e-5), fp32
-    stats with var = max(E[x^2] - E[x]^2, 0), result in the promoted
-    dtype of input and params. Normalises over axis ``dim``."""
+    stats (float64 for a float64 input) with var = max(E[x^2] - E[x]^2,
+    0), result in the promoted dtype of input and params. Normalises over
+    axis ``dim``."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -209,13 +231,14 @@ class LayerNorm(nn.Module):
     reset_parameters = GroupNorm.reset_parameters
 
     def forward(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        x32 = x.float()
+        st = stats_dtype(x)
+        x32 = x.to(st)
         mean = x32.mean(dim, keepdim=True)
         var = ((x32 * x32).mean(dim, keepdim=True) - mean * mean).clamp_min(0.0)
         shape = [1] * x.ndim
         shape[dim] = x.shape[dim]
-        mul = torch.rsqrt(var + self.eps) * self.scale.float().reshape(shape)
-        y = (x32 - mean) * mul + self.bias.float().reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.scale.to(st).reshape(shape)
+        y = (x32 - mean) * mul + self.bias.to(st).reshape(shape)
         return y.to(common_dtype(x, self.scale))
 
 

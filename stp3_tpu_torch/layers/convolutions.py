@@ -12,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stp3_tpu_torch.layers.base import (Conv2d, Dense, LayerNorm, Norm,
-                                        common_dtype, to_first, to_last)
+                                        common_dtype, dropout, to_first, to_last)
 from stp3_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
 
 
@@ -175,7 +175,8 @@ class AtrousConv(Conv2d):
 
 
 class ASPP(ChannelsLast):
-    """Atrous spatial pyramid pooling (eval: dropout is the identity)."""
+    """Atrous spatial pyramid pooling, then dropout 0.5 when ``nchw`` is
+    given a generator (training)."""
 
     def __init__(self, cin: int, cout: int = 256, rates: Sequence[int] = (12, 24, 36),
                  norm: str = 'gn'):
@@ -189,7 +190,7 @@ class ASPP(ChannelsLast):
         for i in range(len(rates) + 3):
             setattr(self, f'Norm_{i}', Norm(cout, norm))
 
-    def nchw(self, x):
+    def nchw(self, x, rng: Optional[torch.Generator] = None):
         branches = [self.Conv_0] + [getattr(self, f'Conv_{i + 1}')
                                     for i in range(self.n_rates)]
         res = [F.relu(getattr(self, f'Norm_{i}')(conv(x)))
@@ -197,7 +198,8 @@ class ASPP(ChannelsLast):
         k = self.n_rates + 1
         g = x.mean((-2, -1), keepdim=True)
         res.append(F.relu(getattr(self, f'Norm_{k}')(getattr(self, f'Conv_{k}')(g))))
-        return F.relu(getattr(self, f'Norm_{k + 1}')(self.Conv_5.nchw(res)))
+        h = F.relu(getattr(self, f'Norm_{k + 1}')(self.Conv_5.nchw(res)))
+        return dropout(h, 0.5, rng)
 
 
 class DeepLabHead(ChannelsLast):
@@ -210,8 +212,8 @@ class DeepLabHead(ChannelsLast):
         self.Norm_0 = Norm(hidden, norm)
         self.Conv_1 = Conv2d(hidden, num_classes, 1)
 
-    def nchw(self, x):
-        x = self.ASPP_0.nchw(x)
+    def nchw(self, x, rng: Optional[torch.Generator] = None):
+        x = self.ASPP_0.nchw(x, rng)
         return self.Conv_1(F.relu(self.Norm_0(self.Conv_0(x))))
 
 

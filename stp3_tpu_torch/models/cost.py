@@ -17,8 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stp3_tpu.utils.rasterize import polygon
 from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters
+from stp3_tpu_torch.utils.rasterize import polygon
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,13 +9,13 @@ at the bottom/right (the stem, and the strided depthwise convs), which
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stp3_tpu_torch.layers.base import Conv2d, Norm, to_first, to_last
+from stp3_tpu_torch.layers.base import Conv2d, Norm, dropout, to_first, to_last
 
 # (num_repeat, kernel, stride, expand_ratio, in_ch, out_ch, se_ratio)
 _BASE_BLOCKS: List[Tuple[int, int, int, int, int, int, float]] = [
@@ -75,12 +75,15 @@ class SqueezeExcite(nn.Module):
 
 
 class MBConv(nn.Module):
-    """Inverted-residual block (eval: drop-connect is the identity)."""
+    """Inverted-residual block. Given a generator (training), a residual
+    block drops its whole residual branch per sample with probability
+    ``drop_rate`` (drop-connect, as efficientnet_pytorch's)."""
 
     def __init__(self, in_ch: int, kernel: int, stride: int, expand: int,
-                 out_ch: int, se_ratio: float, norm: str = 'gn'):
+                 out_ch: int, se_ratio: float, norm: str = 'gn', drop_rate: float = 0.0):
         super().__init__()
         self.stride, self.residual = stride, stride == 1 and in_ch == out_ch
+        self.drop_rate = drop_rate
         mid = in_ch * expand
         convs, norms = [], []
         if expand != 1:
@@ -98,7 +101,7 @@ class MBConv(nn.Module):
             setattr(self, f'Conv_{i}', c)
             setattr(self, f'Norm_{i}', n)
 
-    def forward(self, x):                                        # NCHW
+    def forward(self, x, rng: Optional[torch.Generator] = None):  # NCHW
         i = 0
         h = x
         if self.expand:
@@ -108,7 +111,9 @@ class MBConv(nn.Module):
         if self.se:
             h = self.SqueezeExcite_0(h)
         h = getattr(self, f'Norm_{i + 1}')(getattr(self, f'Conv_{i + 1}')(h))
-        return h + x if self.residual else h
+        if not self.residual:
+            return h
+        return dropout(h, self.drop_rate, rng, (h.shape[0], 1, 1, 1)) + x
 
 
 class EfficientNetFeatures(nn.Module):
@@ -117,21 +122,24 @@ class EfficientNetFeatures(nn.Module):
 
     def __init__(self, arch: str = 'efficientnet-b4', norm: str = 'gn'):
         super().__init__()
-        width, _, _ = _SCALING[arch]
+        width, _, drop_connect = _SCALING[arch]
         stem_ch = round_filters(32, width)
         self.Conv_0 = Conv2d(3, stem_ch, 3, 2, 'SAME', bias=False)
         self.Norm_0 = Norm(stem_ch, norm, eps=1e-3)
-        self.n_blocks = 0
-        for idx, (k, s, e, i, o, se) in enumerate(block_plan(arch)):
-            setattr(self, f'MBConv_{idx}', MBConv(i, k, s, e, o, se, norm))
-            self.n_blocks += 1
+        plan = block_plan(arch)
+        self.n_blocks = len(plan)
+        # drop-connect divides by the TRUNCATED block count, as the
+        # reference does (encoder.py:48-55)
+        for idx, (k, s, e, i, o, se) in enumerate(plan):
+            setattr(self, f'MBConv_{idx}',
+                    MBConv(i, k, s, e, o, se, norm, drop_connect * idx / self.n_blocks))
 
-    def nchw(self, x) -> Dict[str, torch.Tensor]:
+    def nchw(self, x, rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         x = F.silu(self.Norm_0(self.Conv_0(x)))
         endpoints: Dict[str, torch.Tensor] = {}
         prev = x
         for idx in range(self.n_blocks):
-            x = getattr(self, f'MBConv_{idx}')(x)
+            x = getattr(self, f'MBConv_{idx}')(x, rng)
             if prev.shape[-2] > x.shape[-2]:
                 endpoints[f'reduction_{len(endpoints) + 1}'] = prev
             prev = x

@@ -3,7 +3,7 @@ EfficientNet trunk + two DeepLab necks giving a C-channel context map
 and a D-bin depth-logit map at stride 8."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,14 +31,17 @@ class Encoder(nn.Module):
         self.DeepLabHead_1 = DeepLabHead(c1, c1, 64, norm)
         self.UpsamplingConcat_1 = UpsamplingConcat(c1, c2, D, norm)
 
-    def nchw(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        endpoints = self.EfficientNetFeatures_0.nchw(x)
+    def nchw(self, x, rng: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``rng``: the generator of the training-time drop-connect and
+        dropout masks; None at eval."""
+        endpoints = self.EfficientNetFeatures_0.nchw(x, rng)
         input_1 = endpoints['reduction_4']     # stride 16
         input_2 = endpoints['reduction_3']     # stride 8
-        feat = self.UpsamplingConcat_0.nchw(self.DeepLabHead_0.nchw(input_1), input_2)
-        depth = self.UpsamplingConcat_1.nchw(self.DeepLabHead_1.nchw(input_1), input_2)
+        feat = self.UpsamplingConcat_0.nchw(self.DeepLabHead_0.nchw(input_1, rng), input_2)
+        depth = self.UpsamplingConcat_1.nchw(self.DeepLabHead_1.nchw(input_1, rng), input_2)
         return feat, depth
 
-    def forward(self, x):
-        feat, depth = self.nchw(to_first(x))
+    def forward(self, x, rng: Optional[torch.Generator] = None):
+        feat, depth = self.nchw(to_first(x), rng)
         return to_last(feat), to_last(depth)

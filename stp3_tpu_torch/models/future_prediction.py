@@ -4,6 +4,8 @@ res-blocks, then ``n_gru_blocks`` SpatialGRUs over [past ++ future] with
 ConvNeXt blocks between them and a DeepLabHead after the last."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
@@ -12,10 +14,10 @@ from stp3_tpu_torch.layers.convolutions import ConvNeXtBlock, DeepLabHead
 from stp3_tpu_torch.layers.temporal import DualGRU, SpatialGRU
 
 
-def _per_frame(module, x):
+def _per_frame(module, x, *args):
     """Apply a 2-D ``nchw`` module to every frame of (B, C, T, H, W)."""
     b, _, t, h, w = x.shape
-    y = module.nchw(x.transpose(1, 2).flatten(0, 1))
+    y = module.nchw(x.transpose(1, 2).flatten(0, 1), *args)
     return y.reshape(b, t, -1, h, w).transpose(1, 2)
 
 
@@ -38,9 +40,10 @@ class FuturePrediction(nn.Module):
                     n_cnx += 1
         self.DeepLabHead_0 = DeepLabHead(in_channels, in_channels, 128, norm)
 
-    def nchw(self, sample, state):
+    def nchw(self, sample, state, rng: Optional[torch.Generator] = None):
         """sample (B, L, 1, H, W); state (B, C, P, H, W) ->
-        (B, C, P + n_future, H, W)."""
+        (B, C, P + n_future, H, W); ``rng`` draws the DeepLabHead's
+        training-time dropout mask (None at eval)."""
         x = self.DualGRU_0.nchw(sample, state)
         cnx = 0
         for _ in range(self.n_res_layers):
@@ -55,7 +58,7 @@ class FuturePrediction(nn.Module):
                     x = _per_frame(getattr(self, f'ConvNeXtBlock_{cnx}'), x)
                     cnx += 1
             else:
-                x = _per_frame(self.DeepLabHead_0, x)
+                x = _per_frame(self.DeepLabHead_0, x, rng)
         return x
 
     def forward(self, sample, state):

@@ -1,9 +1,10 @@
-"""Planner (port of stp3_tpu/models/planning_model.py, eval path):
+"""Planner (port of stp3_tpu/models/planning_model.py):
 command-conditioned candidate selection, argmin over the seven BEV
 costs, then GRU refinement of the chosen trajectory from the front-cam
-feature. The GRU cell is written in flax's own layout (ir/iz/in input
-denses with bias, hr/hz/hn recurrent denses, only hn with bias), so a
-flax tree loads leaf for leaf.
+feature; in training, the max-margin loss of the candidates against the
+GT trajectory plus the smooth-L1 of the refinement. The GRU cell is
+written in flax's own layout (ir/iz/in input denses with bias, hr/hz/hn
+recurrent denses, only hn with bias), so a flax tree loads leaf for leaf.
 
 Command codes: 0=LEFT, 1=FORWARD, 2=RIGHT, 3=other (keep all candidates).
 """
@@ -93,15 +94,33 @@ class Planning(nn.Module):
         kk = torch.argmin(fc + fo.sum(-1), -1)
         return trajs[torch.arange(trajs.shape[0], device=trajs.device), kk]
 
-    def forward(self, cam_front, trajs, gt_trajs, cost_volume, semantic_pred, hd_map,
-                commands, target_points):
-        """Eval-mode ``Planning.__call__``: returns (loss = 0, refined (B, T, 3)).
+    def loss(self, trajs, gt_trajs, cost_volume, semantic_pred, lane_divider,
+             drivable_area, target_points):
+        """Max-margin loss of the candidates against the GT trajectory
+        (reference planning_model.py:66-87)."""
+        sm_fc, sm_fo = self.cost_fn(cost_volume, trajs[..., :2], semantic_pred,
+                                    lane_divider, drivable_area, target_points)
+        gt = gt_trajs[:, None] if gt_trajs.ndim == 3 else gt_trajs
+        gt_fc, gt_fo = self.cost_fn(cost_volume, gt[..., :2], semantic_pred, lane_divider,
+                                    drivable_area, target_points)
+        l2 = ((trajs[..., :2] - gt[..., :2]) ** 2).sum(-1)          # (B, N, T)
+        margin = F.relu(gt_fo - sm_fo).sum(-1) + (gt_fc - sm_fc) + l2.mean(-1)
+        return F.relu(margin).max(-1).values.mean()
 
-        cam_front (B, Hf, Wf, C); trajs (B, N, T, 3); cost_volume and
-        semantic_pred (B, T, H, W); hd_map (B, H, W, 2 or 4) channels-last;
-        commands (B,) int; target_points (B, 2)."""
+    def forward(self, cam_front, trajs, gt_trajs, cost_volume, semantic_pred, hd_map,
+                commands, target_points, train: bool = False):
+        """``Planning.__call__``: returns (loss, refined (B, T, 3)); the loss
+        is 0 unless ``train``.
+
+        cam_front (B, Hf, Wf, C); trajs (B, N, T, 3); gt_trajs (B, T, 3);
+        cost_volume and semantic_pred (B, T, H, W); hd_map (B, H, W, 2 or 4)
+        channels-last; commands (B,) int; target_points (B, 2)."""
         cur = self.select_trajs_by_command(trajs, commands.long())
         lane_divider, drivable_area = self.split_hdmap(hd_map)
+        loss = None
+        if train:
+            loss = self.loss(cur, gt_trajs, cost_volume, semantic_pred, lane_divider,
+                             drivable_area, target_points)
         h = to_first(cam_front)
         for i in range(4):
             h = getattr(self, f'reduce_channel_{i}').nchw(h)
@@ -121,4 +140,11 @@ class Planning(nn.Module):
             outs.append(x)
         out = torch.stack(outs, 1)
         out3 = torch.cat([out, torch.zeros_like(out[..., :1])], -1)
-        return torch.zeros((), device=out.device), out3
+        if not train:
+            return torch.zeros((), device=out.device), out3
+        # smooth-L1 to GT with the x axis weighted 10x (reference :148)
+        diff = out - gt_trajs[..., :2]
+        absd = diff.abs()
+        huber = torch.where(absd < 1.0, 0.5 * diff ** 2, absd - 0.5)
+        weight = torch.tensor([10.0, 1.0], device=huber.device)     # fp32, as in JAX
+        return loss * 0.5 + (huber * weight).mean(), out3

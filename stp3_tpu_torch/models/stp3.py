@@ -1,17 +1,25 @@
 """STP3: perceive -> predict -> plan (port of stp3_tpu/models/stp3.py,
-inference path with the materialised lift).
+the materialised-lift path, for serving and training).
 
 ``forward(image, intrinsics, extrinsics, future_egomotion)`` returns the
 JAX model's output dict (channels-last); ``plan(...)`` runs the planner.
 Geometry stays fp32 under any parameter dtype.
+
+Training (``train=True``) draws every random number from the caller's
+``torch.Generator``: the EfficientNet drop-connect masks, the four
+DeepLabHeads' dropout masks and the GAUSSIAN latent noise.
+``MODEL.REMAT='encoder'`` recomputes the encoder's activations in the
+backward (``torch.utils.checkpoint``), replaying the same masks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from stp3_tpu_torch.layers.base import to_first, to_last
 from stp3_tpu_torch.models.cost import CostConfig
@@ -84,6 +92,7 @@ class STP3Config:
     gt_depth: bool = False
     cam_front_index: int = 1
     norm: str = 'gn'
+    remat: str = 'none'
 
     @classmethod
     def from_cfg(cls, cfg) -> "STP3Config":
@@ -125,6 +134,7 @@ class STP3Config:
             cam_front_index=(1 if cfg.PLANNING.get('CAM_FRONT_PARITY', False)
                              else _cam_front_index(cfg.IMAGE.NAMES)),
             norm=cfg.MODEL.get('NORM', 'gn'),
+            remat=cfg.MODEL.get('REMAT', 'none'),
         )
 
     @property
@@ -169,6 +179,9 @@ def _check_supported(c: STP3Config) -> None:
     if c.n_future <= 0 or c.receptive_field < 2:
         raise NotImplementedError('only N_FUTURE_FRAMES > 0 and '
                                   'TIME_RECEPTIVE_FIELD >= 2 are ported')
+    if c.remat not in ('none', 'encoder'):
+        raise NotImplementedError(f"MODEL.REMAT={c.remat!r} is not ported yet (only 'none' "
+                                  "and 'encoder'; the other stages are on ROADMAP.md queue 1)")
 
 
 class STP3(nn.Module):
@@ -219,16 +232,43 @@ class STP3(nn.Module):
             self._frustum_on[device] = torch.as_tensor(self.frustum, device=device)
         return self._frustum_on[device]
 
+    def encode(self, image: torch.Tensor, rng: Optional[torch.Generator] = None):
+        """(B*, H, W, 3) -> channels-last (features, depth logits); under
+        ``remat == 'encoder'`` (and autograd) the activations are
+        recomputed in the backward. The checkpointed call takes the
+        encoder's parameters as they are now, so a recomputation sees the
+        same (e.g. bf16) copies, and it replays the forward's masks from
+        the generator state it started with, leaving the generator where
+        it was."""
+        if self.cfg.remat != 'encoder' or not torch.is_grad_enabled():
+            return self.encoder(image, rng)
+        start = None if rng is None else rng.get_state()
+        ran = []
+
+        def run(params, x):
+            if rng is not None and ran:                   # the backward's recomputation
+                now = rng.get_state()
+                rng.set_state(start)
+                try:
+                    return functional_call(self.encoder, params, (x, rng))
+                finally:
+                    rng.set_state(now)
+            ran.append(True)
+            return functional_call(self.encoder, params, (x, rng))
+
+        return checkpoint(run, dict(self.encoder.named_parameters()), image,
+                          use_reentrant=False, preserve_rng_state=False)
+
     def calculate_birds_eye_view_features(self, image, intrinsics, extrinsics,
-                                          future_egomotion):
+                                          future_egomotion, rng=None):
         """(B, S, N, H, W, 3) -> BEV (B, S, nx, ny, C), depth logits
         (B, S, N, Hf, Wf, D) and the present frame's front-cam feature."""
         b, s, n = image.shape[:3]
         geometry = get_geometry(self._frustum(image.device), intrinsics.float(),
                                 extrinsics.float())
-        feat, depth = self.encoder.nchw(to_first(image.reshape(b * s * n, *image.shape[3:])))
-        feat = to_last(feat).reshape(b, s, n, *feat.shape[2:], feat.shape[1])
-        depth = to_last(depth).reshape(b, s, n, *depth.shape[2:], depth.shape[1])
+        feat, depth = self.encode(image.reshape(b * s * n, *image.shape[3:]), rng)
+        feat = feat.reshape(b, s, n, *feat.shape[1:])
+        depth = depth.reshape(b, s, n, *depth.shape[1:])
         cam_front = feat[:, -1, self.cfg.cam_front_index]
         lifted = lift_depth_context(feat, depth)                   # (B,S,N,D,Hf,Wf,C)
         x = project_to_birds_eye_view(lifted, geometry, future_egomotion.float(),
@@ -236,32 +276,48 @@ class STP3(nn.Module):
                                       self.bev_dimension, self.cfg.discount)
         return x, depth, cam_front
 
-    def distribution_forward(self, present_state):
-        """present_state (B, C, 1, H, W) -> eval sample (B, L, 1, H, W) and
-        the distribution stats; at eval the noise is zero."""
+    def distribution_forward(self, present_state, noise=None):
+        """present_state (B, C, 1, H, W) -> sample (B, L, 1, H, W) and the
+        distribution stats. ``noise`` (B, 1, L) is the GAUSSIAN draw; None
+        means zero (eval)."""
         c = self.cfg
         b, _, s, h, w = present_state.shape
         L = c.latent_dim
         out = self.present_distribution.nchw(present_state)        # (B, 1, 2L)
         mu = out[:, :, :L]
         log_sigma = out[:, :, L:2 * L].clamp(c.min_log_sigma, c.max_log_sigma)
-        sample = mu + torch.exp(log_sigma) * torch.zeros_like(mu)
+        noise = torch.zeros_like(mu) if noise is None else noise.to(mu)
+        sample = mu + torch.exp(log_sigma) * noise
         sample = sample.reshape(b, s, L).transpose(1, 2)[..., None, None].expand(b, L, s, h, w)
         return sample, {'present_mu': mu, 'present_log_sigma': log_sigma}
 
-    def forward(self, image, intrinsics, extrinsics, future_egomotion):
+    def forward(self, image, intrinsics, extrinsics, future_egomotion, train: bool = False,
+                generator: Optional[torch.Generator] = None, noise=None,
+                dropout: bool = True):
         """image (B, S, N, H, W, 3); intrinsics (B, S, N, 3, 3); extrinsics
         (B, S, N, 4, 4); future_egomotion (B, S, 6). Returns the output
-        dict, channels-last."""
+        dict, channels-last.
+
+        ``train``: drop-connect and dropout masks (unless ``dropout`` is
+        False) and the GAUSSIAN noise (unless ``noise`` (B, 1, L) is given)
+        are drawn from ``generator``, which must then be on the model's
+        device."""
         rf = self.cfg.receptive_field
+        if train and generator is None and (dropout or noise is None):
+            raise ValueError('train=True draws random numbers: pass a torch.Generator')
+        masks = generator if train and dropout else None
+        if train and noise is None:
+            noise = torch.randn(image.shape[0], 1, self.cfg.latent_dim, generator=generator,
+                                device=image.device)
         ego = future_egomotion[:, :rf]
         x, depth, cam_front = self.calculate_birds_eye_view_features(
-            image[:, :rf], intrinsics[:, :rf], extrinsics[:, :rf], ego)
-        return self.forward_from_bev(x, depth, cam_front, ego)
+            image[:, :rf], intrinsics[:, :rf], extrinsics[:, :rf], ego, masks)
+        return self.forward_from_bev(x, depth, cam_front, ego, noise, masks)
 
-    def forward_from_bev(self, x, depth, cam_front, ego):
+    def forward_from_bev(self, x, depth, cam_front, ego, noise=None, rng=None):
         """The post-splat forward: egopose concat -> temporal ->
-        distribution / future -> decode. x (B, rf, nx, ny, C)."""
+        distribution / future -> decode. x (B, rf, nx, ny, C); ``noise``
+        and ``rng`` as in ``forward`` (None at eval)."""
         c = self.cfg
         rf = c.receptive_field
         output = {'depth_prediction': depth, 'cam_front': cam_front}
@@ -271,15 +327,15 @@ class STP3(nn.Module):
             ego_shift = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], 1)
             ego_spatial = ego_shift[:, :, None, None, :].expand(b, s, h, w, 6)
             x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
-        states = self.temporal_model.nchw(to_first(x))            # (B, C, S, H, W)
-        sample, stats = self.distribution_forward(states[:, :, -1:])
+        states = self.temporal_model.nchw(to_first(x), rng)         # (B, C, S, H, W)
+        sample, stats = self.distribution_forward(states[:, :, -1:], noise)
         output.update(stats)
-        states = self.future_prediction.nchw(sample, states)
+        states = self.future_prediction.nchw(sample, states, rng)
         output.update(self.decoder(to_last(states)))
         return output
 
     def plan(self, cam_front, trajs, gt_trajs, cost_volume, semantic_pred, hd_map,
-             commands, target_points):
-        """The planner: (loss = 0 at eval, refined trajectory (B, T, 3))."""
+             commands, target_points, train: bool = False):
+        """The planner: (loss, 0 unless ``train``; refined trajectory (B, T, 3))."""
         return self.planner(cam_front, trajs, gt_trajs, cost_volume, semantic_pred,
-                            hd_map, commands, target_points)
+                            hd_map, commands, target_points, train)

@@ -4,8 +4,9 @@ TemporalBlocks with spatio-temporal pyramid pooling over the full BEV
 extent, then a per-frame DeepLabHead. (B, S, H, W, C) in and out."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import torch
 import torch.nn as nn
 
 from stp3_tpu_torch.layers.base import to_first, to_last
@@ -46,12 +47,13 @@ class TemporalModel(nn.Module):
             c += extra_in_channels
         return c if receptive_field > 1 else start_out_channels
 
-    def nchw(self, x):
-        """x (B, C, S, H, W) -> (B, C', S, H, W)."""
+    def nchw(self, x, rng: Optional[torch.Generator] = None):
+        """x (B, C, S, H, W) -> (B, C', S, H, W); ``rng`` draws the
+        DeepLabHead's training-time dropout mask (None at eval)."""
         for name in self.layers:
             x = getattr(self, name).nchw(x)
         b, c, s, h, w = x.shape
-        flat = self.DeepLabHead_0.nchw(x.transpose(1, 2).flatten(0, 1))
+        flat = self.DeepLabHead_0.nchw(x.transpose(1, 2).flatten(0, 1), rng)
         return flat.reshape(b, s, -1, h, w).transpose(1, 2)
 
     def forward(self, x):

@@ -84,6 +84,24 @@ def pose_vec2mat(vec: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], -2)
 
 
+def mat2pose_vec(matrix: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) pose -> (..., 6) (tx, ty, tz, rx, ry, rz)."""
+    rotx = torch.atan2(-matrix[..., 1, 2], matrix[..., 2, 2])
+    cosy = torch.sqrt(matrix[..., 1, 2] ** 2 + matrix[..., 2, 2] ** 2)
+    roty = torch.atan2(matrix[..., 0, 2], cosy)
+    rotz = torch.atan2(-matrix[..., 0, 1], matrix[..., 0, 0])
+    return torch.cat([matrix[..., :3, 3], torch.stack([rotx, roty, rotz], -1)], -1)
+
+
+def invert_pose_matrix(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid (..., 4, 4) pose: [R^T, -R^T t]."""
+    rot_t = x[..., :3, :3].transpose(-1, -2)
+    top = torch.cat([rot_t, -matmul_fp32(rot_t, x[..., :3, 3:])], -1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], -2)
+
+
 def cumulative_prewarp_transforms(future_egomotion: torch.Tensor, s: int) -> torch.Tensor:
     """(B, S, 6) frame-to-next motions -> (B, S, 4, 4); entry t =
     M_{s-2} @ ... @ M_t (identity for t = s-1): the transform that brings

@@ -27,6 +27,13 @@ and re-read the (N, 256) hidden tensor and the LayerNorm / GELU
 intermediates. The design keeps the hidden tile in registers and reads
 each weight matrix once per program, from L2.
 
+Backward: ``convnext_mlp`` is a ``torch.autograd.Function`` whose
+backward is autograd through ``convnext_mlp_plain`` on the saved inputs,
+the rematerialised plain backward of the JAX package
+(``convnext_mlp_kernel.py::_bwd``, which has no backward kernel either):
+the (N, 4C) hidden tensor exists only inside that backward. It returns
+the gradients of h, x and all seven parameters.
+
 Dispatch is on the tensor's device: a CPU tensor goes to the plain
 version ``convnext_mlp_plain`` (the tests' path), a CUDA tensor launches
 the kernel or raises. ``convnext_mlp.launches`` counts kernel launches.
@@ -130,17 +137,8 @@ def _check(h, x, scale, bias, w1, b1, w2, b2, gamma):
         raise ValueError(f'all operands must share one device, got {devs}')
 
 
-def convnext_mlp(h, x, scale, bias, w1, b1, w2, b2, gamma):
-    """Fused LN + MLP + layer-scale residual over rows.
-
-    h, x: (N, C) fp32 or bf16, contiguous; scale, bias, gamma, b2: (C,);
-    w1: (C, 4C); b1: (4C,); w2: (4C, C). Returns (N, C) in x's dtype.
-    """
-    _check(h, x, scale, bias, w1, b1, w2, b2, gamma)
-    if h.device.type == 'cpu':
-        return convnext_mlp_plain(h, x, scale, bias, w1, b1, w2, b2, gamma)
-    if h.device.type != 'cuda':
-        raise RuntimeError(f'convnext_mlp: no kernel for device {h.device}')
+def _launch(h, x, scale, bias, w1, b1, w2, b2, gamma):
+    """One launch of the Triton kernel on CUDA operands."""
     n, c = h.shape
     c4 = w1.shape[1]
     if c & (c - 1) or c4 & (c4 - 1) or c < 16:
@@ -160,6 +158,41 @@ def convnext_mlp(h, x, scale, bias, w1, b1, w2, b2, gamma):
             num_warps=_NUM_WARPS)
     convnext_mlp.launches += 1
     return out
+
+
+class ConvNextMLP(torch.autograd.Function):
+    """Forward: the Triton kernel for CUDA operands, the plain version for
+    CPU ones. Backward: autograd through the plain version."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        if args[0].device.type == 'cpu':
+            return convnext_mlp_plain(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = convnext_mlp_plain(*inputs)
+        grads = iter(torch.autograd.grad(y, [t for t in inputs if t.requires_grad], g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def convnext_mlp(h, x, scale, bias, w1, b1, w2, b2, gamma):
+    """Fused LN + MLP + layer-scale residual over rows, differentiable in
+    every argument.
+
+    h, x: (N, C) fp32 or bf16, contiguous; scale, bias, gamma, b2: (C,);
+    w1: (C, 4C); b1: (4C,); w2: (4C, C). Returns (N, C) in x's dtype.
+    """
+    args = (h, x, scale, bias, w1, b1, w2, b2, gamma)
+    _check(*args)
+    if h.device.type not in ('cpu', 'cuda'):
+        raise RuntimeError(f'convnext_mlp: no kernel for device {h.device}')
+    return ConvNextMLP.apply(*args)
 
 
 convnext_mlp.launches = 0

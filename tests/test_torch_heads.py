@@ -98,3 +98,34 @@ def test_planner_select_and_refine(planner_pair, command):
         loss_t, traj_t = tmod(*[torch.from_numpy(a) for a in inputs])
     assert float(loss_j) == 0.0 and float(loss_t) == 0.0
     close(traj_t, traj_j)
+
+
+@pytest.mark.parametrize('command', [1, 2])        # FORWARD, RIGHT
+def test_planner_train_loss_and_gradients(planner_pair, command):
+    """train=True: the max-margin loss over the command's candidates plus
+    the x-weighted smooth-L1 of the refinement, and its gradients with
+    respect to every planner parameter and to the cost volume."""
+    params, _, tmod, inputs = planner_pair
+    inputs = inputs[:6] + [np.array([command], np.int32)] + inputs[7:]
+    jmod = JP.Planning(cost_cfg=_cost_cfg(JCOST.CostConfig), sample_num=12,
+                       feature_channel=16, gru_state_size=2)
+
+    def loss_fn(p, cv):
+        args = [jnp.asarray(a) for a in inputs]
+        args[3] = cv
+        return jmod.apply({'params': p}, *args, train=True)[0]
+
+    loss_j, (gp, gcv) = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(
+        params, jnp.asarray(inputs[3]))
+    tin = [torch.from_numpy(a) for a in inputs]
+    tin[3].requires_grad_(True)
+    tmod.zero_grad()
+    loss_t, traj_t = tmod(*tin, train=True)
+    loss_t.backward()
+    assert float(loss_j) > 0
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
+    close(tin[3].grad, gcv)
+    want = dict(load_flax_params(TP.Planning(_cost_cfg(TCOST.CostConfig), 12, 16, 2),
+                                 jax.tree.map(np.asarray, gp)).named_parameters())
+    for name, p in tmod.named_parameters():
+        close(p.grad, want[name].detach())

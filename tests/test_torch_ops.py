@@ -103,3 +103,66 @@ def test_project_to_birds_eye_view_matches_jax(method):
     assert tuple(got.shape) == want.shape == (1, 3, 16, 16, 8)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.abs(want[:, 0]).sum() > 0 and np.abs(want[:, 2] - want[:, 1]).sum() > 0
+
+
+# ------------------------------------------------------------------ warp
+from stp3_tpu.ops import warp as jwarp  # noqa: E402
+from stp3_tpu_torch.ops import warp as twarp  # noqa: E402
+
+
+@pytest.mark.parametrize('mode', ['nearest', 'bilinear'])
+def test_warp_features_matches_jax(mode):
+    rng = np.random.RandomState(4)
+    x = rng.randn(3, 12, 10, 5).astype(np.float32)
+    flow = (rng.randn(3, 6) * [2.0, 2.0, 0, 0, 0, 0.3]).astype(np.float32)
+    want = np.asarray(jwarp.warp_features(jnp.asarray(x), jnp.asarray(flow), mode, (8.0, 8.0)))
+    got = twarp.warp_features(torch.from_numpy(x), torch.from_numpy(flow), mode, (8.0, 8.0))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_nearest_half_pixel_ties_round_up_like_jax():
+    """A shift of exactly half a pixel (ty = 1/W on a 16-wide map, exact in
+    binary) puts every sample on a tie: floor(ix + 0.5) rounds it up, where
+    F.grid_sample's nearest mode would round half to even. Integer labels
+    must come out equal."""
+    x = np.arange(2 * 16 * 16, dtype=np.float32).reshape(2, 16, 16, 1)
+    flow = np.zeros((2, 6), np.float32)
+    flow[:, 1] = 8.0 / 16                       # ty = flow[1] / extent = 1/16
+    flow[1, 0] = -8.0 / 16                      # and tx on the second map
+    want = np.asarray(jwarp.warp_features(jnp.asarray(x), jnp.asarray(flow), 'nearest',
+                                          (8.0, 8.0)))
+    got = twarp.warp_features(torch.from_numpy(x), torch.from_numpy(flow), 'nearest',
+                              (8.0, 8.0)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # every column moved by one whole pixel (the tie rounded up), last one zero
+    np.testing.assert_array_equal(got[0, :, :-1], x[0, :, 1:])
+    np.testing.assert_array_equal(got[0, :, -1], 0)
+
+
+@pytest.mark.parametrize('mode', ['nearest', 'bilinear'])
+def test_cumulative_warps_match_jax(mode):
+    """Past frames warped forward, future frames warped back, as the
+    trainer's label preparation runs them (integer labels as floats)."""
+    rng = np.random.RandomState(6)
+    x = rng.randint(0, 3, (2, 4, 16, 16, 1)).astype(np.float32)
+    flow = (rng.randn(2, 4, 6) * [1.5, 0.5, 0, 0, 0, 0.05]).astype(np.float32)
+    for jfn, tfn in ((jwarp.cumulative_warp_features, twarp.cumulative_warp_features),
+                     (jwarp.cumulative_warp_features_reverse,
+                      twarp.cumulative_warp_features_reverse)):
+        want = np.asarray(jfn(jnp.asarray(x), jnp.asarray(flow), mode, (8.0, 8.0)))
+        got = tfn(torch.from_numpy(x), torch.from_numpy(flow), mode, (8.0, 8.0)).numpy()
+        if mode == 'nearest':
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_pose_inverse_and_matrix_to_vector_match_jax():
+    rng = np.random.RandomState(8)
+    vec = (rng.randn(5, 6) * [2, 2, 0.1, 0.05, 0.05, 0.5]).astype(np.float32)
+    mats = jgeo.pose_vec2mat(jnp.asarray(vec))
+    tm = tgeo.pose_vec2mat(torch.from_numpy(vec))
+    np.testing.assert_allclose(tgeo.invert_pose_matrix(tm).numpy(),
+                               np.asarray(jgeo.invert_pose_matrix(mats)), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tgeo.mat2pose_vec(tm).numpy(),
+                               np.asarray(jgeo.mat2pose_vec(mats)), rtol=1e-5, atol=1e-6)
