@@ -6,10 +6,12 @@
 
 Phases, each printing one line (or a few) before the last:
   1. device: card name and power limit, torch / CUDA versions, TF32 flags;
-  2. build: nvcc-build the BEV splat kernels (K1 and K3) from csrc/;
+  2. build: nvcc-build the BEV splat kernels (K1 and K3) and the fused
+     lift + splat (K4) from csrc/, one nvcc per source, both at once;
   3. K1 vs its plain version at the serving (F=3) and training (F=6)
-     splat shapes, ranks from the flagship rig's real geometry; times of
-     both and of index_add_;
+     splat shapes, ranks from the flagship rig's real geometry, and at the
+     agent's single-frame splat (F=1, the CARLA rig); times of both and of
+     index_add_;
   4. K2 (fused ConvNeXt MLP, Triton) vs its plain version at the serving
      and training row counts; times of both;
   5. K3 (the splat's backward row gather) vs its plain version at the
@@ -17,6 +19,13 @@ Phases, each printing one line (or a few) before the last:
      both and of torch.gather;
   6. backward: K1's autograd Function (K3 backward) vs the plain splat's
      autograd at the training shape, bit for bit;
+  [K1 v1] / [K1 v2]: K1's per-frame entries at one flagship frame against
+     the plain version, index_add_ and their bound; then the serving splat
+     with method 'pallas' / 'pallas2' (3 launches, one per frame) against
+     method 'auto' (one launch for all frames);
+  [K4]: the fused lift + splat at the flagship fused shape (F=3) against
+     its plain version, beside the path it replaces (the lift, then K1),
+     and its backward against autograd through the plain version;
   7. CPU-vs-CUDA parity of the tiny model in fp32 (same seeded weights),
      every head, the planner costs on a shared occupancy, and the refined
      trajectory;
@@ -30,19 +39,31 @@ Phases, each printing one line (or a few) before the last:
  10. training: the Planning stage at full width and batch 2 (bf16 policy,
      fp32 masters, REMAT 'encoder', seeded init, synthetic batches): one
      counted step, then 2 warm-up and 10 timed steps; loss terms finite,
-     parameters changed, step p50, samples/s and peak memory.
+     parameters changed, step p50, samples/s and peak memory;
+ 11. [fused]: the flagship with fused_lift_splat: fp32 BEV features of the
+     fused and materialised paths of the same weights, then forward + plan
+     under the bf16 policy (K4 once, K2 twice, K1 never) and its p50;
+ 12. [agent]: the CARLA Planning stage at full width (4 cameras at
+     256x256, 200x200 BEV at 0.2 m, 2,400 candidates, seeded fp32 weights):
+     AgentCore in its three tick modes over recorded ticks (seeded uint8
+     300x400 frames, GPS 2 m further each tick): controls in range, static
+     vs dynamic single-frame splat, incremental vs full heads at zero
+     ego-motion; each mode's plan_step p50 over 20 ticks, launches per
+     tick and peak memory.
 With --profile, after phase 10: the train step split by CUDA events into
 loss (labels + forward + losses), backward and clip + Adam, the host's
 time to issue a step, and a torch.profiler window of 3 steps (kernel
 launches, summed kernel time, the kernels that take the most).
-Then one JSON line with every kernel's numbers (the train path's at the
-top level, each path's launches and times under "paths"), and last
-{"ok": true, "device": {...}}. Any failure exits non-zero before that.
+Then one JSON line with every kernel's numbers (the numbers of the path
+each kernel was measured on at the top level, each path's launches and
+times under "paths"), and last {"ok": true, "device": {...}}. Any failure
+exits non-zero before that.
 Without a CUDA device, or without the repository beside it, it fails.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,6 +110,28 @@ TINY = {
 }
 
 
+# stp3_tpu/configs/carla/Planning.yml, as code: the agent's configuration
+CARLA_PLANNING = {
+    'TAG': 'CARLA_planning', 'BATCHSIZE': 2, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
+    'DATASET': {'NAME': 'carla'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 4,
+    'IMAGE': {'FINAL_DIM': (256, 256), 'NAMES': ['front', 'left', 'right', 'rear'],
+              'ORIGINAL_HEIGHT': 300, 'ORIGINAL_WIDTH': 400},
+    'LIFT': {'X_BOUND': [-20.0, 20.0, 0.2], 'Y_BOUND': [-20.0, 20.0, 0.2], 'GT_DEPTH': False},
+    'EGO': {'WIDTH': 2.12, 'HEIGHT': 4.90},
+    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
+              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
+              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
+    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': True}, 'HDMAP': {'ENABLED': True}},
+    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
+    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'GAUSSIAN'},
+    'PLANNING': {'ENABLED': True, 'GRU_STATE_SIZE': 128, 'SAMPLE_NUM': 2400},
+    'FUTURE_DISCOUNT': 0.95, 'OPTIMIZER': {'LR': 2e-4},
+    'COST_FUNCTION': {'SAFETY': 1.0, 'HEADWAY': 1.0, 'LRDIVIDER': 10.0, 'COMFORT': 1.0,
+                      'PROGRESS': 1.0, 'VOLUME': 100.0},
+    'PRETRAINED': {'LOAD_WEIGHTS': True},
+}
+
+
 def make_cfg(*overrides):
     """The port's default config with the nested overrides merged in order."""
     from stp3_tpu_torch.config import CfgNode, get_cfg
@@ -108,15 +151,72 @@ def planning_cfg(tiny: bool = False):
         PLANNING_STAGE)
 
 
-# the kernels: name, route, source, the TPU kernel each replaces
+def carla_planning_cfg():
+    return make_cfg(CARLA_PLANNING)
+
+
+# the kernels: name, route, source, the TPU kernel each replaces, and the
+# path whose numbers stand at the top level of the kernels line
 KERNELS = (
     ('bev_splat', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
-     'stp3_tpu/ops/pallas/bev_pool_kernel.py:262'),
+     'stp3_tpu/ops/pallas/bev_pool_kernel.py:262', 'train'),
+    ('bev_pool_v1', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
+     'stp3_tpu/ops/pallas/bev_pool_kernel.py:62', 'per_frame'),
+    ('bev_pool_v2', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
+     'stp3_tpu/ops/pallas/bev_pool_kernel.py:169', 'per_frame'),
     ('convnext_mlp', 'triton', 'stp3_tpu_torch/ops/kernels/convnext_mlp.py',
-     'stp3_tpu/ops/pallas/convnext_mlp_kernel.py:124'),
+     'stp3_tpu/ops/pallas/convnext_mlp_kernel.py:124', 'train'),
     ('gather_rows', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
-     'stp3_tpu/ops/pallas/bev_pool_kernel.py:319'),
+     'stp3_tpu/ops/pallas/bev_pool_kernel.py:319', 'train'),
+    ('lift_splat', 'cuda', 'stp3_tpu_torch/csrc/lift_splat.cu',
+     'stp3_tpu/ops/pallas/bev_pool_kernel.py:418', 'fused'),
 )
+PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent')
+
+
+def counters():
+    """Each kernel's launch counter: the wrapper that launches it."""
+    from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
+    from stp3_tpu_torch.ops.kernels import lift_splat as K4
+    return {'bev_splat': K1.bev_splat_accumulate, 'bev_pool_v1': K1.bev_pool_v1,
+            'bev_pool_v2': K1.bev_pool_v2, 'convnext_mlp': K2.convnext_mlp,
+            'gather_rows': K1.gather_rows, 'lift_splat': K4.lift_splat_accumulate}
+
+
+def reset_launches() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    import torch
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def expect_launches(what: str, launches: dict, **want) -> None:
+    """Fail unless the kernels in ``want`` launched that often and no other
+    kernel launched."""
+    full = {name: want.get(name, 0) for name in launches}
+    if launches != full:
+        fail(f'{what}: launches {launches}, expected {full}')
+
+
+def build_kernels(repo: str) -> None:
+    """nvcc-build K1+K3 (bev_pool.cu) and K4 (lift_splat.cu) at once, one
+    nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
+    from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    from stp3_tpu_torch.ops.kernels import lift_splat as K4
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        infos = list(pool.map(lambda build: build(), (K1.build, K4.build)))
+    for name, info in zip(('K1+K3', 'K4'), infos):
+        regs = [ln.strip() for ln in info['log'].splitlines() if 'registers' in ln]
+        say(f"[build] {name} {'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s "
+            f"-> {os.path.relpath(info['path'], repo)}; ptxas: {' | '.join(regs)}")
+    say(f'[build] both builds done in {time.perf_counter() - t0:.2f} s of wall time')
 
 
 def fail(msg: str) -> None:
@@ -192,31 +292,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def splat_ranks(cfg, device, b: int = 1):
-    """(F = b * rf, P) int32 ranks of the flagship rig's real frustum
-    geometry, pre-warped by the example ego-motion, as the model splats."""
+def rig_geometry(cfg, device, b: int = 1, carla: bool = False):
+    """(geometry (B, rf, N, D, Hf, Wf, 3), ego (B, rf, 6), (res, start,
+    dim)) of the example rig and ego-motion, or of the fixed CARLA rig at
+    zero ego-motion."""
     import torch
-    from stp3_tpu_torch.models.stp3 import STP3Config
-    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
+    from stp3_tpu_torch.datas.carla import carla_cam_rig
     from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
                                              create_frustum, get_geometry)
-    mc = STP3Config.from_cfg(cfg)
+    mc = model_cfg(cfg)
     (_, k, e, ego), _ = example_inputs(cfg, b=b)
-    res, start, dim = calculate_birds_eye_view_parameters(mc.x_bound, mc.y_bound,
-                                                          mc.z_bound)
+    if carla:
+        extr, intr = carla_cam_rig(mc.final_dim)
+        k, e = (np.tile(a, (b, mc.receptive_field, 1, 1, 1)) for a in (intr, extr))
+        ego = np.zeros_like(ego)
+    grid = calculate_birds_eye_view_parameters(mc.x_bound, mc.y_bound, mc.z_bound)
     fr = torch.as_tensor(create_frustum(mc.final_dim, mc.encoder_downsample, mc.d_bound),
                          device=device)
     k, e, ego = to_torch((k, e, ego), device)
-    ranks = prewarped_ranks(get_geometry(fr, k, e), ego, res, start, dim)
-    return ranks, int(np.prod(dim))
+    return get_geometry(fr, k, e), ego, grid
 
 
-def phase_k1(cfg, device, path: str, b: int = 1):
+def splat_ranks(cfg, device, b: int = 1):
+    """(F = b * rf, P) int32 ranks of the flagship rig's real frustum
+    geometry, pre-warped by the example ego-motion, as the model splats."""
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
+    geometry, ego, (res, start, dim) = rig_geometry(cfg, device, b)
+    return prewarped_ranks(geometry, ego, res, start, dim), int(np.prod(dim))
+
+
+def phase_k1(cfg, device, path: str, b: int = 1, ranks=None):
     """K1 vs its plain version at the splat of a batch of ``b`` (F = b * rf
-    frames); returns its numbers for the ``path`` it serves."""
+    frames), or at the given (F, P) ``ranks``; returns its numbers for the
+    ``path`` it serves."""
     import torch
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
-    ranks, ncells = splat_ranks(cfg, device, b=b)
+    ncells = int(np.prod(model_cfg(cfg).bev_dimension))
+    if ranks is None:
+        ranks, ncells = splat_ranks(cfg, device, b=b)
     f, p = ranks.shape
     c = cfg.MODEL.ENCODER.OUT_CHANNELS
     gen = torch.Generator(device='cpu').manual_seed(SEED)
@@ -373,17 +486,176 @@ def phase_backward(cfg, device):
         f'splat\'s autograd')
 
 
+def model_cfg(cfg):
+    from stp3_tpu_torch.models.stp3 import STP3Config
+    return STP3Config.from_cfg(cfg)
+
+
+def phase_per_frame(cfg, device):
+    """[K1 v1] / [K1 v2]: K1's per-frame entries at one flagship frame (the
+    present frame's ranks) against the plain version, then the serving
+    splat with method 'pallas' / 'pallas2' against 'auto'. Returns (numbers
+    by entry, launches of the per-frame path)."""
+    import torch
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks, project_to_birds_eye_view
+    from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    geometry, ego, (res, start, dim) = rig_geometry(cfg, device)
+    ranks = prewarped_ranks(geometry, ego, res, start, dim)[-1].contiguous()
+    ncells = int(np.prod(dim))
+    p = ranks.shape[0]
+    c = cfg.MODEL.ENCODER.OUT_CHANNELS
+    gen = torch.Generator(device='cpu').manual_seed(SEED)
+    feats32 = torch.randn(p, c, generator=gen).to(device)
+    feats = feats32.to(torch.bfloat16)
+    valid = (ranks < ncells).sum().item()
+    numbers = {}
+    for name, version in (('bev_pool_v1', 'v1'), ('bev_pool_v2', 'v2')):
+        entry = getattr(K1, name)
+        got32 = entry(feats32, ranks, ncells)
+        want32 = K1.bev_splat_accumulate_plain(feats32[None], ranks[None], ncells)[0]
+        got16 = entry(feats, ranks, ncells)
+        want16 = K1.bev_splat_plain(feats[None], ranks[None], ncells)[0]
+        torch.cuda.synchronize()
+        err = (got32 - want32).abs().max().item()
+        # fp32 rows: the fp32 sums at K1's tolerance; bf16 rows: both round
+        # the same sums (reordered), so at most one bf16 rounding (2^-8) apart
+        ok = (torch.allclose(got32, want32, rtol=1e-4, atol=1e-3)
+              and torch.allclose(got16.float(), want16.float(), rtol=2 ** -7, atol=1e-3))
+        ms = time_ms(lambda: entry(feats, ranks, ncells))
+        plain_ms = time_ms(lambda: K1.bev_splat_plain(feats[None], ranks[None], ncells))
+        buf = torch.zeros(ncells + 1, c, dtype=feats.dtype, device=device)
+        idx = ranks.long()
+        library_ms = time_ms(lambda: buf.index_add_(0, idx, feats))
+        n_bytes = valid * c * feats.element_size() + nbytes(ranks) + ncells * c * 2
+        bound_ms, bound_by = bound(n_bytes, valid * c, 'fp32')
+        say(f'[K1 {version}] {name} P={p} C={c} ncells={ncells} bf16 (one flagship frame, '
+            f'invalid share {1 - valid / p:.4f}): max_abs_err {err:.3e} on fp32 rows (rtol '
+            f'1e-4, atol 1e-3), bf16 rows within one rounding, {"OK" if ok else "MISMATCH"}; '
+            f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, '
+            f'bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)')
+        if not ok:
+            fail(f'K1 {version} disagrees with its plain version')
+        numbers[name] = dict(shape=f'P={p} C={c} ncells={ncells} bf16', max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+
+    # the per-frame path: the serving splat with one launch per frame, fp32
+    # lifted rows so that the methods compare at K1's tolerance
+    mc = model_cfg(cfg)
+    n = len(cfg.IMAGE.NAMES)
+    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
+    lifted = torch.randn(1, mc.receptive_field, n, mc.depth_channels, hf, wf, c,
+                         generator=torch.Generator(device=device).manual_seed(SEED),
+                         device=device)
+    args = (lifted, geometry, ego, res, start, dim, mc.discount)
+    reset_launches()
+    want = project_to_birds_eye_view(*args, method='auto')
+    expect_launches("method 'auto'", read_launches(), bev_splat=1)
+    path_launches = dict.fromkeys(counters(), 0)
+    for method, name in (('pallas', 'bev_pool_v1'), ('pallas2', 'bev_pool_v2')):
+        reset_launches()
+        got = project_to_birds_eye_view(*args, method=method)
+        launches = read_launches()
+        expect_launches(f'method {method!r}', launches, **{name: mc.receptive_field})
+        path_launches[name] += launches[name]
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+            fail(f'project_to_birds_eye_view method {method!r} differs from \'auto\': '
+                 f'max_abs_err {err:.3e}')
+        say(f'[K1 per_frame] project_to_birds_eye_view {tuple(lifted.shape)} fp32, method '
+            f'{method!r}: {launches[name]} launches of {name} (one per frame), equal to '
+            f"method 'auto' (one K1 launch) within rtol 1e-4, atol 1e-3: max_abs_err {err:.3e}")
+    return numbers, path_launches
+
+
+def phase_k4(cfg, device):
+    """[K4]: the fused lift + splat at the flagship fused shape (F = rf
+    frames, bf16 ctx and depth probabilities, the rig's real ranks) against
+    its plain version and the path it replaces; its backward (fp32) against
+    autograd through the plain version."""
+    import torch
+    from stp3_tpu_torch.models.stp3 import lift_depth_context
+    from stp3_tpu_torch.ops.bev_pool import lift_ray_ids
+    from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    from stp3_tpu_torch.ops.kernels import lift_splat as K4
+    ranks, ncells = splat_ranks(cfg, device)
+    mc = model_cfg(cfg)
+    f, p = ranks.shape
+    n, d, c = len(cfg.IMAGE.NAMES), mc.depth_channels, cfg.MODEL.ENCODER.OUT_CHANNELS
+    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    feat = torch.randn(f, n, hf, wf, c, generator=gen, device=device).to(torch.bfloat16)
+    logits = torch.randn(f, n, hf, wf, d, generator=gen, device=device).to(torch.bfloat16)
+    rays = lift_ray_ids(n, d, hf, wf, device)
+
+    def probs(lg):
+        return torch.softmax(lg, -1).movedim(-1, 2).reshape(f, -1).contiguous()
+
+    ctx, dp = feat.reshape(f, -1, c), probs(logits)
+    acc_k = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    acc_p = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
+    torch.cuda.synchronize()
+    err = (acc_k - acc_p).abs().max().item()
+    ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
+    ms = time_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
+    plain_ms = time_ms(lambda: K4.lift_splat_plain(ctx, dp, ranks, rays, ncells))
+    # from the same encoder outputs: softmax + K4, against the lift + K1
+    fused_ms = time_ms(lambda: K4.lift_splat_frames(ctx, probs(logits), ranks, rays, ncells))
+    materialised_ms = time_ms(lambda: K1.bev_splat(
+        lift_depth_context(feat, logits).reshape(f, -1, c), ranks, ncells))
+    valid = (ranks < ncells).sum().item()
+    # every rank read once; the ray id and dp of each point that lands; the
+    # ctx table once; the (F, ncells, C) result written once in ctx's dtype;
+    # a multiply and an add per channel of each point that lands
+    n_bytes = (nbytes(ranks) + valid * (rays.element_size() + dp.element_size()) + nbytes(ctx)
+               + f * ncells * c * ctx.element_size())
+    bound_ms, bound_by = bound(n_bytes, 2 * valid * c, 'fp32')
+    say(f'[K4] lift_splat F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16, invalid share '
+        f'{1 - valid / (f * p):.4f}: max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) '
+        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+        f'{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); from the encoder outputs: '
+        f'softmax + K4 {fused_ms:.3f} ms, lift + K1 (materialised) {materialised_ms:.3f} ms; '
+        f'no single PyTorch call computes this function')
+    if not ok:
+        fail('K4 disagrees with its plain version')
+
+    g = torch.randn(f, ncells, c, generator=gen, device=device)
+    grads = []
+    for fn in (K4.lift_splat_frames, K4.lift_splat_plain):
+        a = ctx.float().requires_grad_(True)
+        b = dp.float().requires_grad_(True)
+        reset_launches()
+        fn(a, b, ranks, rays, ncells).backward(g)
+        grads.append((a.grad, b.grad, read_launches()))
+    (ga, gb, lk), (wa, wb, lp) = grads
+    expect_launches('K4 forward + backward', lk, lift_splat=1, gather_rows=1)
+    expect_launches('plain lift + splat forward + backward', lp)
+    errs = [(x - y).abs().max().item() for x, y in ((ga, wa), (gb, wb))]
+    # fp32 on both sides; index_add_ over ray ids and the atomics reorder sums
+    if not (torch.allclose(ga, wa, rtol=1e-4, atol=1e-4)
+            and torch.allclose(gb, wb, rtol=1e-4, atol=1e-4)):
+        fail(f'K4 backward differs from the plain autograd: d ctx {errs[0]:.3e}, d dp '
+             f'{errs[1]:.3e} (rtol 1e-4, atol 1e-4)')
+    say(f'[K4] backward (fp32, K3 row gather + index_add_ over ray ids) vs autograd through the '
+        f'plain version within rtol 1e-4, atol 1e-4: d ctx max_abs_err {errs[0]:.3e}, d dp '
+        f'{errs[1]:.3e}')
+    return dict(shape=f'F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16',
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, materialised_ms=materialised_ms,
+                fused_path_ms=fused_ms)
+
+
 def to_torch(arrays, device, dtype=None):
     import torch
     return [torch.as_tensor(a, device=device) if dtype is None or not np.issubdtype(
         a.dtype, np.floating) else torch.as_tensor(a, device=device).to(dtype) for a in arrays]
 
 
-def build_model(cfg):
+def build_model(cfg, fused: bool = False):
     import torch
     from stp3_tpu_torch.layers.base import init_parameters
-    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
-    model = STP3(STP3Config.from_cfg(cfg))
+    from stp3_tpu_torch.models.stp3 import STP3
+    model = STP3(dataclasses.replace(model_cfg(cfg), fused_lift_splat=fused))
     init_parameters(model, torch.Generator().manual_seed(SEED))
     return model.eval()
 
@@ -461,14 +733,16 @@ def phase_parity(tiny_cfg, device):
         f'{len(errs)} outputs within atol 2e-3 rtol 1e-3; worst {worst} {errs[worst]:.3e}')
 
 
-def phase_flagship(cfg, device, card):
+def phase_flagship(cfg, device, card, fused: bool = False):
+    """The serving forward + plan at full width under the bf16 policy;
+    ``fused``: with the fused lift + splat (K4 in place of the lift and
+    K1). Returns the launches of one step."""
     import torch
-    from stp3_tpu_torch.ops.kernels.bev_splat import bev_splat_accumulate
-    from stp3_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
     from stp3_tpu_torch.utils.precision import policy_dtype
+    tag = '[fused]' if fused else '[flagship]'
     t0 = time.perf_counter()
     dt = policy_dtype(cfg)
-    model = build_model(cfg).to(device=device, dtype=dt)
+    model = build_model(cfg, fused).to(device=device, dtype=dt)
     n_params = sum(p.numel() for p in model.parameters())
     (image, k, e, ego), ex = example_inputs(cfg)
     image, = to_torch((image,), device, dt)
@@ -476,16 +750,15 @@ def phase_flagship(cfg, device, card):
     trajs, gt, target = to_torch((ex['trajs'], ex['gt_trajs'], ex['target_points']),
                                  device, dt)
     commands, = to_torch((ex['commands'],), device)
-    say(f'[flagship] {n_params} params, {dt}, built in {time.perf_counter() - t0:.1f} s')
+    say(f'{tag} {n_params} params, {dt}, built in {time.perf_counter() - t0:.1f} s')
     with torch.inference_mode():
-        bev_splat_accumulate.launches = 0
-        convnext_mlp.launches = 0
+        reset_launches()
         out, traj = plan_step(model, image, k, e, ego, trajs, gt, commands, target)
-        torch.cuda.synchronize()
-        launches = {'bev_splat': bev_splat_accumulate.launches,
-                    'convnext_mlp': convnext_mlp.launches}
-        if launches != {'bev_splat': 1, 'convnext_mlp': 2}:
-            fail(f'per-forward launches {launches}, expected 1 K1 and 2 K2')
+        launches = read_launches()
+        if fused:
+            expect_launches('fused forward + plan', launches, lift_splat=1, convnext_mlp=2)
+        else:
+            expect_launches('forward + plan', launches, bev_splat=1, convnext_mlp=2)
         for key, v in out.items():
             if v is not None and not torch.isfinite(v.float()).all():
                 fail(f'flagship output {key} is not finite')
@@ -493,15 +766,268 @@ def phase_flagship(cfg, device, card):
                 traj.float()).all():
             fail(f'refined trajectory {tuple(traj.shape)} not finite of shape (1, 6, 3)')
         shapes = {key: tuple(v.shape) for key, v in out.items() if v is not None}
-        say(f'[flagship] outputs finite: {shapes}; traj {tuple(traj.shape)} '
+        say(f'{tag} outputs finite: {shapes}; traj {tuple(traj.shape)} '
             f'{traj[0, :, :2].float().cpu().numpy().round(3).tolist()}')
-        say(f'[flagship] launches per forward: {launches}')
-        p50 = time_ms(lambda: plan_step(model, image, k, e, ego, trajs, gt, commands,
-                                        target), warmup=3, iters=20)
+        say(f'{tag} launches per forward: {launches}')
+        torch.cuda.reset_peak_memory_stats()
+
+        def step():
+            return plan_step(model, image, k, e, ego, trajs, gt, commands, target)
+
+        p50 = time_ms(step, warmup=3, iters=20)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    say(f'[flagship] forward+plan p50 {p50:.2f} ms (median of 20, CUDA events), '
-        f'peak memory {peak:.2f} GiB, on {card}')
+        say(f'{tag} forward+plan p50 {p50:.2f} ms (median of 20, CUDA events), '
+            f'peak memory {peak:.2f} GiB, on {card}')
+        if fused:
+            # against the materialised path of the same weights, in turns
+            p50s = {False: [], True: []}
+            for turn in (False, True, True, False):
+                model.cfg = dataclasses.replace(model.cfg, fused_lift_splat=turn)
+                p50s[turn].append(time_ms(step, warmup=3, iters=20))
+            say(f'{tag} in turns (materialised, fused, fused, materialised; p50 of 20 steps '
+                f'each): materialised {" / ".join(f"{t:.2f}" for t in p50s[False])} ms, fused '
+                f'{" / ".join(f"{t:.2f}" for t in p50s[True])} ms, on {card}')
     return launches
+
+
+def phase_fused(cfg, device, card):
+    """[fused]: the fp32 BEV features of the fused (K4) and materialised
+    (lift, then K1) paths of one seeded full-width model, then the fused
+    forward + plan under the bf16 policy. Returns the launches of one step."""
+    import torch
+    model = build_model(cfg).to(device)
+    (image, k, e, ego), _ = example_inputs(cfg)
+    image, k, e, ego = to_torch((image, k, e, ego), device)
+    with torch.inference_mode():
+        want, _, _ = model.calculate_birds_eye_view_features(image, k, e, ego)
+        model.cfg = dataclasses.replace(model.cfg, fused_lift_splat=True)
+        reset_launches()
+        got, _, _ = model.calculate_birds_eye_view_features(image, k, e, ego)
+        expect_launches('fp32 fused BEV features', read_launches(), lift_splat=1)
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-3)
+    say(f'[fused] fp32 BEV features {tuple(got.shape)} of the fused path (K4) vs the '
+        f'materialised one (lift, then K1), same weights: max_abs_err {err:.3e} of max '
+        f'{want.abs().max().item():.3e} (rtol 1e-4, atol 1e-3) {"OK" if ok else "MISMATCH"}')
+    if not ok:
+        fail('fused and materialised BEV features differ')
+    del model, got, want
+    torch.cuda.empty_cache()
+    return phase_flagship(cfg, device, card, fused=True)
+
+
+CAMS = ('rgb', 'rgb_left', 'rgb_right', 'rgb_rear')
+AGENT_MODES = (('full', dict(incremental=False)),
+               ('incremental', dict(incremental=True, static_geometry=False)),
+               ('static', dict(incremental=True, static_geometry=True)))
+HEADS = ('segmentation', 'pedestrian', 'hdmap', 'costvolume')
+
+
+def recorded_ticks(n: int):
+    """n seeded CARLA sensor ticks: uint8 300x400 frames of the four
+    cameras, the GPS 2 m further each tick, heading 0."""
+    rng = np.random.RandomState(SEED)
+    for t in range(n):
+        yield ({key: rng.randint(0, 256, (300, 400, 3), np.uint8) for key in CAMS},
+               np.array([2.0 * t, 0.0]), 0.0)
+
+
+def selected(model, plan_args):
+    """Index of the candidate the planner selects before refinement."""
+    import torch
+    fc, fo = planner_costs(model, plan_args)
+    return torch.argmin(fc + fo.sum(-1), -1).tolist()
+
+
+def serve_plan_args(model, out, trajs, commands, target):
+    import torch
+    rf = model.cfg.receptive_field
+    occ = torch.logical_or(out['segmentation'].argmax(-1), out['pedestrian'].argmax(-1)).float()
+    return (out['cam_front'], trajs, torch.zeros(1, model.cfg.n_future, 3, device=trajs.device),
+            out['costvolume'][:, rf:], occ[:, rf:], out['hdmap'], commands, target)
+
+
+def phase_agent(device, card):
+    """[agent]: the CARLA Planning stage at full width, seeded fp32 weights:
+    the serving methods against the full forward, then AgentCore's three
+    tick modes. Returns (K1's numbers at the agent's splat, the launches of
+    one steady tick of each mode)."""
+    import torch
+    from stp3_tpu_torch.datas.carla import carla_cam_rig, scale_and_crop_image
+    from stp3_tpu_torch.deploy.agent_core import AgentCore
+    from stp3_tpu_torch.models.stp3 import context_depth_rays, lift_depth_context
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks, project_to_birds_eye_view
+    from stp3_tpu_torch.ops.static_splat import build_column_splat_plan, column_splat
+    from stp3_tpu_torch.utils import sampler
+    from stp3_tpu_torch.utils.network import prepare_image
+    cfg = carla_planning_cfg()
+    t0 = time.perf_counter()
+    model = build_model(cfg).to(device)
+    mc, rf = model.cfg, cfg.TIME_RECEPTIVE_FIELD
+    say(f'[agent] CARLA Planning stage: {sum(p.numel() for p in model.parameters())} fp32 '
+        f'params, {len(cfg.IMAGE.NAMES)} cameras at {tuple(mc.final_dim)}, BEV {mc.bev_size} at '
+        f'{mc.x_bound[2]} m, D={mc.depth_channels}, rf {rf}, {mc.n_future} future frames, '
+        f'{mc.sample_num} candidates, GRU {mc.gru_state_size}; built in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    # K1 at the agent's dynamic single-frame splat: the CARLA rig, F=1
+    geometry, ego, (res, start, dim) = rig_geometry(cfg, device, carla=True)
+    k1 = phase_k1(cfg, device, 'agent',
+                  ranks=prewarped_ranks(geometry[:, -1:], ego[:, -1:], res, start, dim))
+
+    # the serving methods against the full forward at zero ego-motion
+    extr, intr = carla_cam_rig(mc.final_dim)
+    t0 = time.perf_counter()
+    arrays = build_column_splat_plan(model.frustum, intr, extr, model.bev_resolution,
+                                     model.bev_start_position,
+                                     model.bev_dimension).device_arrays(device)
+    plan_s = time.perf_counter() - t0
+    crop = mc.final_dim[0]
+    frames = np.stack([np.stack([scale_and_crop_image(fr[key], 1.0, crop) for key in CAMS])
+                       for fr, _, _ in recorded_ticks(rf)])[None]        # (1, rf, 4, H, W, 3)
+    images = prepare_image(torch.as_tensor(frames, device=device), torch.float32)
+    k, e = (torch.as_tensor(np.tile(a, (1, rf, 1, 1, 1)), device=device) for a in (intr, extr))
+    ego0 = torch.zeros(1, rf, 6, device=device)
+    trajs = torch.as_tensor(sampler.sample_trajectories(
+        3.0, 0.0, mc.n_future, mc.sample_num, rng=np.random.RandomState(SEED))[None, :, 1:],
+        dtype=torch.float32, device=device)
+    commands = torch.tensor([1], device=device)
+    target = torch.tensor([[0.0, 5.0]], device=device)
+    with torch.inference_mode():
+        bev_d, _ = model.splat_single_frame(images[:, -1], k[:, -1], e[:, -1])
+        bev_s, _ = model.splat_single_frame_static(images[:, -1], arrays)
+        err = (bev_s - bev_d).abs().max().item()
+        if not torch.allclose(bev_s, bev_d, rtol=1e-4, atol=1e-3):
+            fail(f'static and dynamic single-frame splats differ: max_abs_err {err:.3e}')
+        say(f'[agent] single-frame splat {tuple(bev_d.shape)} fp32, static (column plan, built '
+            f'in {plan_s:.2f} s, mask {tuple(arrays["mask"].shape)}) vs dynamic (K1): max_abs_err '
+            f'{err:.3e} of max {bev_d.abs().max().item():.3e} (rtol 1e-4, atol 1e-3) OK')
+        out_f = model(images, k, e, ego0)
+        args_f = serve_plan_args(model, out_f, trajs, commands, target)
+        _, traj_f = model.plan(*args_f)
+        pick_f = selected(model, args_f)
+        cache = {name: torch.stack([split(t) for t in range(rf - 1)], 1) for name, split in (
+            ('incremental', lambda t: model.splat_single_frame(images[:, t], k[:, t], e[:, t])[0]),
+            ('static', lambda t: model.splat_single_frame_static(images[:, t], arrays)[0]))}
+        served = {'incremental': model.serve_step(images[:, -1], k[:, -1], e[:, -1], ego0,
+                                                  cache['incremental'], trajs, commands, target),
+                  'static': model.serve_step_static(images[:, -1], ego0, cache['static'], trajs,
+                                                    commands, target, arrays)}
+        for name, (traj, out, _) in served.items():
+            errs = {key: (out[key] - out_f[key]).abs().max().item() for key in HEADS}
+            # tests/test_serving.py:69-73's tolerance (rtol = atol = 1e-4), atol
+            # doubled: the full forward splats its frames in one K1 launch, the
+            # tick each frame alone, so the fp32 atomics sum in other orders
+            # (which change from run to run), and the identity warp of the
+            # cached frames is exact only to the rounding of its sampling
+            # coordinates; through the 200x200 fp32 BEV stack that moves the
+            # heads by up to ~1e-4 (9.6e-5 and 1.02e-4 in two runs)
+            share = max(((out[key] - out_f[key]).abs() / (2e-4 + 1e-4 * out_f[key].abs()))
+                        .max().item() for key in HEADS)
+            ok = share <= 1.0
+            pick = selected(model, serve_plan_args(model, out, trajs, commands, target))
+            d_traj = (traj - traj_f).abs().max().item()
+            say(f'[agent] {name} tick vs full forward at zero ego-motion: heads max_abs_err '
+                f'{ {key: float(f"{v:.3e}") for key, v in errs.items()} } (rtol 1e-4, atol 2e-4; '
+                f'{share:.2f} of the tolerance used) {"OK" if ok else "MISMATCH"}; selected '
+                f'candidate {pick} vs {pick_f}; refined trajectory max_abs_err {d_traj:.3e}')
+            if not ok:
+                fail(f'{name} tick heads differ from the full forward at zero ego-motion')
+            if pick == pick_f and not torch.allclose(traj, traj_f, rtol=1e-4, atol=1e-4):
+                fail(f'{name} tick trajectory differs from the full forward\'s with the same '
+                     f'selected candidate')
+        # the single-frame splat alone, from the encoder's outputs: the lift
+        # and K1 (dynamic) against the column plan (static)
+        feat, depth = model.encode(images[:, -1].reshape(-1, *images.shape[3:]))
+        feat = feat.reshape(1, -1, *feat.shape[1:])
+        depth5 = depth.reshape(1, -1, *depth.shape[1:])
+        zero = torch.zeros(1, 1, 6, device=device)
+        ctx, dp = context_depth_rays(mc, feat, depth)
+        dyn_ms = time_ms(lambda: project_to_birds_eye_view(
+            lift_depth_context(feat, depth5)[:, None], geometry[:, -1:], zero, res, start, dim))
+        sta_ms = time_ms(lambda: column_splat(ctx, dp, arrays, (
+            feat.shape[1], feat.shape[2], feat.shape[3], mc.depth_channels, mc.bev_dimension)))
+        say(f'[agent] single-frame splat from the encoder outputs, fp32: lift + K1 {dyn_ms:.3f} '
+            f'ms, column plan (mask product, context product, sorted index_add_) {sta_ms:.3f} ms '
+            f'(CUDA events, median of 20)')
+    del out_f, served, cache
+
+    # the three tick modes through AgentCore: 2 checked ticks, then 20 timed
+    per_tick, n_timed = {}, 20
+    for mode, kw in AGENT_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        core = AgentCore(cfg, model, device=device, **kw)
+        setup_s = time.perf_counter() - t0
+        controls, push_ms, plan_ms, sample_ms = [], [], [], []
+        for t, (frame, gps, theta) in enumerate(recorded_ticks(rf + 3 + n_timed)):
+            t0 = time.perf_counter()
+            core.push_frame(frame, gps, theta)
+            push_ms.append((time.perf_counter() - t0) * 1e3)
+            if not core.warmed_up:
+                continue
+            np.random.seed(SEED + t)              # the sampler draws from the module RNG
+            if len(controls) == 2:
+                reset_launches()
+            t0 = time.perf_counter()
+            controls.append(core.plan_step(3.0, 4, np.array([0.0, 5.0])))
+            plan_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for _ in range(n_timed):                  # the sampler alone: host work of a tick
+            t0 = time.perf_counter()
+            sampler.sample_trajectories(3.0, 0.0, mc.n_future, mc.sample_num)
+            sample_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(plan_ms) != 2 + n_timed:
+            fail(f'agent {mode}: {len(plan_ms)} planned ticks, expected {2 + n_timed}')
+        for steer, throttle, brake, _ in controls:
+            if not (np.isfinite([steer, throttle]).all() and -1.0 <= steer <= 1.0
+                    and 0.0 <= throttle <= 0.75 and isinstance(brake, bool)):
+                fail(f'agent {mode}: control out of range: {(steer, throttle, brake)}')
+        per = {name: n / n_timed for name, n in launches.items()}
+        expect_launches(f'agent {mode} tick', per, **({} if mode == 'static' else {'bev_splat': 1}))
+        per_tick[mode] = {name: int(n) for name, n in per.items()}
+        first = [tuple(round(float(v), 4) for v in c[:3]) for c in controls[:2]]
+        say(f'[agent] {mode}: set-up (incl. warm-up{", column plan" if mode == "static" else ""}) '
+            f'{setup_s:.2f} s; first two planned ticks (steer, throttle, brake) {first}; '
+            f'plan_step p50 {float(np.median(plan_ms[2:])):.2f} ms (median of {n_timed} ticks, '
+            f'wall clock, host included; spread {min(plan_ms[2:]):.2f}-{max(plan_ms[2:]):.2f}), '
+            f'push_frame (crop) p50 {float(np.median(push_ms)):.3f} ms, of which host work: '
+            f'trajectory sampling p50 {float(np.median(sample_ms)):.2f} ms; launches per tick '
+            f'{ {n: v for n, v in per_tick[mode].items() if v} }; peak memory {peak:.2f} GiB; '
+            f'on {card}')
+        if '--profile' in sys.argv[1:]:
+            profile_ticks(core, mode, card)
+    return k1, per_tick
+
+
+def profile_ticks(core, mode: str, card, ticks: int = 3):
+    """Where an agent tick's time goes (--profile): torch.profiler over
+    ``ticks`` planned ticks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    frames = list(recorded_ticks(ticks))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for frame, gps, theta in frames:
+            core.push_frame(frame, gps, theta)
+            core.plan_step(3.0, 4, np.array([0.0, 5.0]))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / ticks
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / ticks
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / ticks, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    say(f'[profile] agent {mode}: {ticks} ticks under torch.profiler, {wall:.2f} ms of wall '
+        f'time per tick, {len(kernels) / ticks:.0f} device events and {busy:.2f} ms of summed '
+        f'device time per tick; on {card}')
+    for name, (ms, n) in top:
+        say(f'[profile]   {ms:8.2f} ms/tick {n / ticks:6.0f} calls/tick  {name[:110]}')
 
 
 def synthetic_batches(cfg, n_batches: int, device):
@@ -591,10 +1117,7 @@ def phase_train_parity(tiny_cfg, device):
 def phase_train(cfg, device, card):
     """The Planning stage's training at full width and batch cfg.BATCHSIZE."""
     import torch
-    from stp3_tpu_torch.ops.kernels.bev_splat import bev_splat_accumulate, gather_rows
-    from stp3_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
     from stp3_tpu_torch.training.trainer import Trainer
-    counters = (bev_splat_accumulate, gather_rows, convnext_mlp)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=device, seed=SEED)
     n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -605,13 +1128,10 @@ def phase_train(cfg, device, card):
         f'{time.perf_counter() - t0:.1f} s')
     before = [p.detach().clone() for p in trainer.model.parameters()]
 
-    for fn in counters:
-        fn.launches = 0
+    reset_launches()
     losses = [trainer.train_step(batches[0])]
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    if launches != {'bev_splat_accumulate': 1, 'gather_rows': 1, 'convnext_mlp': 2}:
-        fail(f'per-step launches {launches}, expected 1 K1, 1 K3 and 2 K2')
+    launches = read_launches()
+    expect_launches('one train step', launches, bev_splat=1, gather_rows=1, convnext_mlp=2)
     say(f'[train] launches in one train step: {launches}')
 
     for i in range(2):                                           # warm-up
@@ -642,9 +1162,7 @@ def phase_train(cfg, device, card):
     say(f'[train] step p50 {p50:.2f} ms (median of 10, CUDA events; spread '
         f'{min(times):.2f}-{max(times):.2f} ms), {b / p50 * 1e3:.3f} samples/s, peak memory '
         f'{peak:.2f} GiB, on {card}')
-    return trainer, batches, {'bev_splat': launches['bev_splat_accumulate'],
-                              'gather_rows': launches['gather_rows'],
-                              'convnext_mlp': launches['convnext_mlp']}
+    return trainer, batches, launches
 
 
 def profile_train(trainer, batches, card, steps: int = 3):
@@ -703,7 +1221,6 @@ def main() -> None:
         fail('torch.cuda.is_available() is false: this script needs an NVIDIA GPU')
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
-    from stp3_tpu_torch.ops.kernels import bev_splat as K1
 
     device = torch.device('cuda', 0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -715,10 +1232,7 @@ def main() -> None:
         f'{torch.version.cuda}; TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, '
         f'cudnn {torch.backends.cudnn.allow_tf32}')
 
-    info = K1.build()
-    regs = [ln.strip() for ln in info['log'].splitlines() if 'registers' in ln]
-    say(f"[build] K1+K3 {'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s "
-        f"-> {os.path.relpath(info['path'], repo)}; ptxas: {' | '.join(regs)}")
+    build_kernels(repo)
 
     cfg, train_cfg = flagship_cfg(), planning_cfg()
     b = int(train_cfg.BATCHSIZE)
@@ -729,27 +1243,41 @@ def main() -> None:
         'convnext_mlp': {'serving': phase_k2(cfg, device, 'serving'),
                          'train': phase_k2(train_cfg, device, 'train', b)},
         'gather_rows': {'train': phase_k3(train_cfg, device)},
+        'lift_splat': {'fused': phase_k4(cfg, device)},
     }
     phase_backward(train_cfg, device)
+    per_frame, launches = phase_per_frame(cfg, device)
+    launches = {'per_frame': launches}
+    for name, numbers in per_frame.items():
+        report[name] = {'per_frame': numbers}
     phase_parity(flagship_cfg(tiny=True), device)
     phase_train_parity(planning_cfg(tiny=True), device)
-    launches = {'serving': phase_flagship(cfg, device, card)}
+    launches['serving'] = phase_flagship(cfg, device, card)
     trainer, batches, launches['train'] = phase_train(train_cfg, device, card)
     if '--profile' in sys.argv[1:]:
         profile_train(trainer, batches, card)
-    say(f'[launches] serving forward+plan {launches["serving"]}; one train step '
-        f'{launches["train"]}')
+    del trainer, batches
+    torch.cuda.empty_cache()
+    launches['fused'] = phase_fused(cfg, device, card)
+    report['bev_splat']['agent'], per_tick = phase_agent(device, card)
+    # the agent path: one steady tick of each of its three modes
+    launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
+                         for name in counters()}
+    say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
+        + f'; agent per tick {per_tick}')
+    for name, *_, main_path in KERNELS:
+        if not launches[main_path][name]:
+            fail(f'{name} was never launched on its path {main_path!r}')
 
-    # the top-level numbers are the train path's (this slice's path, which
-    # runs all three kernels); 'paths' holds every path's launches and times
     kernels = []
-    for name, route, source, replaces in KERNELS:
-        paths = {path: dict(launches=launches[path][name], **numbers)
-                 for path, numbers in report[name].items()}
-        top = {k: paths['train'][k] for k in ('launches', 'max_abs_err', 'ms', 'plain_ms',
-                                              'bound_ms', 'bound_by', 'library_ms')}
+    for name, route, source, replaces, main_path in KERNELS:
+        paths = {path: dict(launches=launches[path][name], **report[name].get(path, {}))
+                 for path in PATHS}
+        paths['agent']['per_tick'] = {mode: tick[name] for mode, tick in per_tick.items()}
+        top = {k: paths[main_path][k] for k in ('launches', 'max_abs_err', 'ms', 'plain_ms',
+                                                'bound_ms', 'bound_by', 'library_ms')}
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces, **top,
-                            paths=paths))
+                            main_path=main_path, paths=paths))
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {'platform': 'gpu',
                                            'kind': torch.cuda.get_device_name(0),

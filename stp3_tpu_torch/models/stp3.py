@@ -1,9 +1,17 @@
 """STP3: perceive -> predict -> plan (port of stp3_tpu/models/stp3.py,
-the materialised-lift path, for serving and training).
+for serving and training).
 
 ``forward(image, intrinsics, extrinsics, future_egomotion)`` returns the
 JAX model's output dict (channels-last); ``plan(...)`` runs the planner.
-Geometry stays fp32 under any parameter dtype.
+Geometry stays fp32 under any parameter dtype. The lift is materialised
+and splatted by K1, or, with ``STP3Config.fused_lift_splat``, fused into
+the splat by K4.
+
+The closed-loop serving methods (``splat_single_frame``, ``serve_step``,
+``splat_single_frame_static``, ``serve_step_static``) encode and splat only
+the newest frame and take the past frames' BEV grids from a cache, aligned
+to the present by SE(2) grid warps; the static variants splat with a plan
+precomputed from a fixed rig (``ops/static_splat.py``).
 
 Training (``train=True``) draws every random number from the caller's
 ``torch.Generator``: the EfficientNet drop-connect masks, the four
@@ -29,9 +37,12 @@ from stp3_tpu_torch.models.encoder import Encoder
 from stp3_tpu_torch.models.future_prediction import FuturePrediction
 from stp3_tpu_torch.models.planning_model import Planning
 from stp3_tpu_torch.models.temporal_model import TemporalModel
-from stp3_tpu_torch.ops.bev_pool import project_to_birds_eye_view
+from stp3_tpu_torch.ops.bev_pool import (discounted_accumulate, project_lift_splat_fused,
+                                         project_to_birds_eye_view)
 from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
                                          create_frustum, get_geometry)
+from stp3_tpu_torch.ops.static_splat import column_splat, static_splat
+from stp3_tpu_torch.ops.warp import cumulative_warp_features
 from stp3_tpu_torch.utils.precision import pin_fp32_math
 
 
@@ -91,6 +102,8 @@ class STP3Config:
             comfort=0.1, progress=0.5, volume=100.0))
     gt_depth: bool = False
     cam_front_index: int = 1
+    # the fused lift + splat (K4); set in code, as in the JAX package
+    fused_lift_splat: bool = False
     norm: str = 'gn'
     remat: str = 'none'
 
@@ -148,6 +161,16 @@ class STP3Config:
         return int(dim[0]), int(dim[1])
 
     @property
+    def bev_dimension(self) -> Tuple[int, int, int]:
+        _, _, dim = calculate_birds_eye_view_parameters(
+            list(self.x_bound), list(self.y_bound), list(self.z_bound))
+        return int(dim[0]), int(dim[1]), int(dim[2])
+
+    @property
+    def spatial_extent(self) -> Tuple[float, float]:
+        return (self.x_bound[1], self.y_bound[1])
+
+    @property
     def temporal_in_channels(self) -> int:
         return self.encoder_out_channels + (6 if self.input_egopose else 0)
 
@@ -162,6 +185,16 @@ def lift_depth_context(feat: torch.Tensor, depth_logits: torch.Tensor) -> torch.
     logits (..., Hf, Wf, D) -> (..., D, Hf, Wf, C)."""
     depth_prob = torch.softmax(depth_logits, -1)
     return depth_prob.movedim(-1, -3)[..., None] * feat[..., None, :, :, :]
+
+
+def context_depth_rays(cfg: STP3Config, feat: torch.Tensor, depth: torch.Tensor):
+    """Ray-major (B, rays, C) context and (B, rays, D) depth distribution
+    for the static splat plans (ray = cam*Hf*Wf + h*Wf + w). feat (B, N,
+    Hf, Wf, C); depth the encoder's flat (B*N, Hf, Wf, D) logits."""
+    b = feat.shape[0]
+    ctx = feat.reshape(b, -1, feat.shape[-1])
+    dp = torch.softmax(depth, -1).reshape(b, -1, cfg.depth_channels)
+    return ctx, dp
 
 
 def _check_supported(c: STP3Config) -> None:
@@ -262,7 +295,10 @@ class STP3(nn.Module):
     def calculate_birds_eye_view_features(self, image, intrinsics, extrinsics,
                                           future_egomotion, rng=None):
         """(B, S, N, H, W, 3) -> BEV (B, S, nx, ny, C), depth logits
-        (B, S, N, Hf, Wf, D) and the present frame's front-cam feature."""
+        (B, S, N, Hf, Wf, D) and the present frame's front-cam feature.
+        ``fused_lift_splat``: K4 splats depth_prob x context without the
+        lifted tensor (the JAX package takes that branch on a single-device
+        TPU only; here whenever the flag is set)."""
         b, s, n = image.shape[:3]
         geometry = get_geometry(self._frustum(image.device), intrinsics.float(),
                                 extrinsics.float())
@@ -270,6 +306,11 @@ class STP3(nn.Module):
         feat = feat.reshape(b, s, n, *feat.shape[1:])
         depth = depth.reshape(b, s, n, *depth.shape[1:])
         cam_front = feat[:, -1, self.cfg.cam_front_index]
+        if self.cfg.fused_lift_splat:
+            x = project_lift_splat_fused(feat, depth, geometry, future_egomotion.float(),
+                                         self.bev_resolution, self.bev_start_position,
+                                         self.bev_dimension, self.cfg.discount)
+            return x, depth, cam_front
         lifted = lift_depth_context(feat, depth)                   # (B,S,N,D,Hf,Wf,C)
         x = project_to_birds_eye_view(lifted, geometry, future_egomotion.float(),
                                       self.bev_resolution, self.bev_start_position,
@@ -318,9 +359,16 @@ class STP3(nn.Module):
         """The post-splat forward: egopose concat -> temporal ->
         distribution / future -> decode. x (B, rf, nx, ny, C); ``noise``
         and ``rng`` as in ``forward`` (None at eval)."""
+        output = {'depth_prediction': depth, 'cam_front': cam_front}
+        heads, stats = self._predict(x, ego, noise, rng)
+        output.update(stats)
+        output.update(heads)
+        return output
+
+    def _predict(self, x, ego, noise=None, rng=None):
+        """(decoder outputs, distribution stats) of the BEV features x."""
         c = self.cfg
         rf = c.receptive_field
-        output = {'depth_prediction': depth, 'cam_front': cam_front}
         if c.input_egopose:
             b, s, h, w = x.shape[:4]
             # no egomotion at time 0: feed zeros, then shift
@@ -329,10 +377,94 @@ class STP3(nn.Module):
             x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
         states = self.temporal_model.nchw(to_first(x), rng)         # (B, C, S, H, W)
         sample, stats = self.distribution_forward(states[:, :, -1:], noise)
-        output.update(stats)
         states = self.future_prediction.nchw(sample, states, rng)
-        output.update(self.decoder(to_last(states)))
-        return output
+        return self.decoder(to_last(states)), stats
+
+    # ------------------------------------------------------------- serving
+    def splat_single_frame(self, image, intrinsics, extrinsics):
+        """Encode, lift and splat ONE frame in its own ego frame (no
+        pre-warp, no temporal accumulate; K1 at F=B). image (B, N, H, W,
+        3); intrinsics (B, N, 3, 3); extrinsics (B, N, 4, 4). Returns (bev
+        (B, nx, ny, C), cam_front (B, Hf, Wf, C))."""
+        b, n = image.shape[:2]
+        geometry = get_geometry(self._frustum(image.device), intrinsics[:, None].float(),
+                                extrinsics[:, None].float())
+        feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
+        feat = feat.reshape(b, n, *feat.shape[1:])
+        depth = depth.reshape(b, n, *depth.shape[1:])
+        cam_front = feat[:, self.cfg.cam_front_index]
+        lifted = lift_depth_context(feat, depth)                    # (B,N,D,Hf,Wf,C)
+        zero_ego = torch.zeros(b, 1, 6, device=image.device)
+        bev = project_to_birds_eye_view(lifted[:, None], geometry, zero_ego,
+                                        self.bev_resolution, self.bev_start_position,
+                                        self.bev_dimension, self.cfg.discount)[:, 0]
+        return bev, cam_front
+
+    def serve_step(self, image, intrinsics, extrinsics, future_egomotion, cached_bev,
+                   trajs, commands, target_points):
+        """Incremental closed-loop inference: only the NEW frame is encoded
+        and splatted; the past frames' BEV grids come from the cache (each
+        in its own ego frame) and are aligned to the present with SE(2)
+        grid warps, not point-level re-warping (the JAX package's serving
+        approximation; training and evaluation use the exact forward).
+
+        image (B, N, H, W, 3) present frame only; future_egomotion (B, rf,
+        6); cached_bev (B, rf-1, nx, ny, C) per-frame ego-centric splats of
+        the past frames, oldest first. Returns (refined trajectory (B,
+        n_future, 3), output dict, new cache)."""
+        bev_new, cam_front = self.splat_single_frame(image, intrinsics, extrinsics)
+        return self._serve_tail(bev_new, cam_front, cached_bev, future_egomotion, trajs,
+                                commands, target_points)
+
+    def splat_single_frame_static(self, image, plan):
+        """Encode and splat ONE frame with a plan precomputed from a fixed
+        rig (``ops/static_splat.py``): no scatter kernel. plan is
+        ``ColumnSplatPlan.device_arrays(device)`` (a dict: per-column
+        products and a sorted segment sum) or
+        ``StaticSplatPlan.device_buckets(device)`` (a list: per-cell gather
+        buckets). Returns (bev, cam_front)."""
+        c = self.cfg
+        b, n = image.shape[:2]
+        feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
+        feat = feat.reshape(b, n, *feat.shape[1:])                   # (B,N,Hf,Wf,C)
+        cam_front = feat[:, c.cam_front_index]
+        ctx, dp = context_depth_rays(c, feat, depth)
+        if isinstance(plan, dict):
+            _, hf, wf = self.frustum.shape[:3]
+            bev = column_splat(ctx, dp, plan, (n, hf, wf, c.depth_channels, c.bev_dimension))
+        else:
+            bev = static_splat(ctx, dp, plan, c.bev_dimension)
+        return bev, cam_front
+
+    def serve_step_static(self, image, future_egomotion, cached_bev, trajs, commands,
+                          target_points, plan):
+        """``serve_step`` with the static-geometry splat (the rig's
+        intrinsics and extrinsics are frozen into ``plan``)."""
+        bev_new, cam_front = self.splat_single_frame_static(image, plan)
+        return self._serve_tail(bev_new, cam_front, cached_bev, future_egomotion, trajs,
+                                commands, target_points)
+
+    def _serve_tail(self, bev_new, cam_front, cached_bev, future_egomotion, trajs,
+                    commands, target_points):
+        """After the present frame's splat: cache alignment, the discounted
+        accumulate, temporal model, future prediction, decode, plan."""
+        c = self.cfg
+        rf = c.receptive_field
+        frames = torch.cat([cached_bev.to(bev_new.dtype), bev_new[:, None]], 1)
+        ego = future_egomotion[:, :rf]
+        aligned = cumulative_warp_features(frames, ego.float(), mode='bilinear',
+                                           spatial_extent=c.spatial_extent)
+        x = discounted_accumulate(aligned, c.discount)              # (B, rf, nx, ny, C)
+        output, _ = self._predict(x, ego)
+        output['cam_front'] = cam_front
+        seg = output['segmentation'].argmax(-1)
+        ped = output['pedestrian'].argmax(-1) if c.predict_pedestrian else torch.zeros_like(seg)
+        occupancy = torch.logical_or(seg, ped).to(x.dtype)
+        gt_dummy = torch.zeros(bev_new.shape[0], c.n_future, 3, dtype=x.dtype,
+                               device=x.device)
+        _, traj = self.plan(cam_front, trajs, gt_dummy, output['costvolume'][:, rf:],
+                            occupancy[:, rf:], output['hdmap'], commands, target_points)
+        return traj, output, frames[:, 1:]
 
     def plan(self, cam_front, trajs, gt_trajs, cost_volume, semantic_pred, hd_map,
              commands, target_points, train: bool = False):

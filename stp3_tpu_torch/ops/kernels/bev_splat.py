@@ -17,11 +17,18 @@ nvcc at first use, binds it with ctypes and checks the arguments.
 ``bev_splat`` is a ``torch.autograd.Function`` whose forward is K1 and
 whose backward is K3.
 
+The JAX package's two per-frame kernels compute K1's function at F=1 and
+are entries on K1's kernel here: ``bev_pool_v1`` replaces
+``bev_pool_pallas`` (v1) and ``bev_pool_v2`` replaces
+``bev_pool_pallas_v2`` (v2). Their backward is K3 at F=1, which is the
+function of both JAX VJPs (``_bwd`` and ``_bwd_v2``).
+
 Dispatch is on the tensor's device: a CPU tensor takes the plain version
 (``index_add_`` onto an (F, ncells + 1, C) fp32 buffer; ``torch.gather``
 from a zero-padded table), a CUDA tensor launches the kernel or raises.
-``bev_splat_accumulate.launches`` and ``gather_rows.launches`` count
-kernel launches.
+``bev_splat_accumulate.launches``, ``bev_pool_v1.launches``,
+``bev_pool_v2.launches`` and ``gather_rows.launches`` count kernel
+launches, each by the entry that made it.
 """
 from __future__ import annotations
 
@@ -95,6 +102,12 @@ def bev_splat_accumulate_plain(feats: torch.Tensor, ranks: torch.Tensor,
 def bev_splat_accumulate(feats: torch.Tensor, ranks: torch.Tensor,
                          ncells: int) -> torch.Tensor:
     """(F, ncells, C) fp32 per-frame sums; the kernel on CUDA tensors."""
+    return _accumulate(feats, ranks, ncells, bev_splat_accumulate)
+
+
+def _accumulate(feats: torch.Tensor, ranks: torch.Tensor, ncells: int,
+                entry) -> torch.Tensor:
+    """K1 for the entry point ``entry``, whose launch count it raises."""
     _check(feats, ranks)
     if ranks.shape != feats.shape[:2]:
         raise ValueError(f'ranks {tuple(ranks.shape)} != feats[:2] {tuple(feats.shape[:2])}')
@@ -112,7 +125,7 @@ def bev_splat_accumulate(feats: torch.Tensor, ranks: torch.Tensor,
             ranks.data_ptr(), acc.data_ptr(), f, p, c, ncells, stream)
     if err != 0:
         raise RuntimeError(f'bev_splat kernel launch failed: cudaError {err}')
-    bev_splat_accumulate.launches += 1
+    entry.launches += 1
     return acc
 
 
@@ -160,20 +173,45 @@ gather_rows.launches = 0
 # ------------------------------------------------------------ autograd
 class BevSplat(torch.autograd.Function):
     """K1 forward, K3 backward (the JAX package's ``_bwd_v2b``); the ranks
-    get no gradient."""
+    get no gradient. ``entry`` is the entry point whose launch count the
+    forward raises."""
 
     @staticmethod
-    def forward(ctx, feats, ranks, ncells):
+    def forward(ctx, feats, ranks, ncells, entry):
         ctx.save_for_backward(ranks)
-        return bev_splat_accumulate(feats, ranks, ncells).to(feats.dtype)
+        return _accumulate(feats, ranks, ncells, entry).to(feats.dtype)
 
     @staticmethod
     def backward(ctx, g):
         ranks, = ctx.saved_tensors
-        return gather_rows(g.contiguous(), ranks), None, None
+        return gather_rows(g.contiguous(), ranks), None, None, None
 
 
 def bev_splat(feats: torch.Tensor, ranks: torch.Tensor, ncells: int) -> torch.Tensor:
     """The K1 function: (F, ncells, C) in feats' dtype, differentiable in
     feats through K3."""
-    return BevSplat.apply(feats, ranks, ncells)
+    return BevSplat.apply(feats, ranks, ncells, bev_splat_accumulate)
+
+
+def _one_frame(feats: torch.Tensor, ranks: torch.Tensor, ncells: int, entry) -> torch.Tensor:
+    if feats.ndim != 2 or ranks.ndim != 1:
+        raise ValueError(f'(P, C) rows / (P,) ranks expected, got {tuple(feats.shape)} / '
+                         f'{tuple(ranks.shape)}')
+    return BevSplat.apply(feats[None], ranks[None], ncells, entry)[0]
+
+
+def bev_pool_v1(feats: torch.Tensor, ranks: torch.Tensor, ncells: int) -> torch.Tensor:
+    """``bev_pool_pallas``'s function: feats (P, C) fp32 or bf16, ranks (P,)
+    int32 in [0, ncells] -> (ncells, C) in feats' dtype (fp32 sums),
+    differentiable in feats; K1 at F=1 on CUDA tensors."""
+    return _one_frame(feats, ranks, ncells, bev_pool_v1)
+
+
+def bev_pool_v2(feats: torch.Tensor, ranks: torch.Tensor, ncells: int) -> torch.Tensor:
+    """``bev_pool_pallas_v2``'s function (the same as v1's); K1 at F=1 on
+    CUDA tensors, counted apart."""
+    return _one_frame(feats, ranks, ncells, bev_pool_v2)
+
+
+bev_pool_v1.launches = 0
+bev_pool_v2.launches = 0

@@ -27,18 +27,9 @@ from stp3_tpu_torch.layers.base import init_parameters
 from stp3_tpu_torch.losses import hdmap_loss, segmentation_loss, spatial_regression_loss
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
+from stp3_tpu_torch.utils.device import resolve_device
 from stp3_tpu_torch.utils.network import prepare_image
 from stp3_tpu_torch.utils.precision import cast_parameters, policy_dtype
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names a device; no card and no name
-    raises (no silent CPU run)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return torch.device('cuda', 0)
 
 
 def make_optimizer(cfg, params) -> torch.optim.Adam:

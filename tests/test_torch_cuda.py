@@ -1,4 +1,5 @@
-"""The port's hand-written kernels (K1, K2, K3) and their autograd wirings
+"""The port's hand-written kernels (K1 with its v1 / v2 entries, K2, K3,
+K4) and their autograd wirings
 against their plain versions on an NVIDIA GPU. Imports no jax, so it runs on a machine with the card (and
 no jax: --noconftest skips tests/conftest.py, which sets jax up):
 
@@ -12,6 +13,7 @@ import torch
 
 from stp3_tpu_torch.ops.kernels import bev_splat as K1
 from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
+from stp3_tpu_torch.ops.kernels import lift_splat as K4
 
 pytestmark = pytest.mark.gpu
 
@@ -124,3 +126,75 @@ def test_convnext_mlp_backward_matches_plain_autograd(cuda):
     # the Function's backward is autograd through the same plain version
     for got, want in zip(*grads):
         assert (got - want).norm() <= 1e-3 * want.norm()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('entry', ['bev_pool_v1', 'bev_pool_v2'])
+def test_per_frame_entries_launch_k1_and_match_plain(cuda, entry, dtype):
+    fn = getattr(K1, entry)
+    gen = torch.Generator().manual_seed(5)
+    p, c, ncells = 1001, 64, 97
+    feats = torch.randn(p, c, generator=gen).to(cuda, dtype).requires_grad_(True)
+    ranks = torch.randint(0, ncells + 1, (p,), generator=gen, dtype=torch.int32).to(cuda)
+    g = torch.randn(ncells, c, generator=gen).to(cuda, dtype)
+    counts = (fn.launches, K1.bev_splat_accumulate.launches, K1.gather_rows.launches)
+    got = fn(feats, ranks, ncells)
+    got.backward(g)
+    assert (fn.launches, K1.bev_splat_accumulate.launches, K1.gather_rows.launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    want = K1.bev_splat_plain(feats.detach()[None], ranks[None], ncells)[0]
+    torch.cuda.synchronize()
+    assert got.dtype == feats.grad.dtype == dtype
+    # fp32 sums on both sides, reordered by the atomics; bf16 outputs may
+    # then round one ULP apart
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.detach().float(), want.float(), **tol)
+    want_grad = K1.gather_rows_plain(g[None], ranks[None])[0]
+    assert torch.equal(feats.grad, want_grad)
+
+
+@pytest.mark.parametrize('dtypes', [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize('c', [8, 64, 40])
+def test_lift_splat_kernel_matches_plain(cuda, dtypes, c):
+    ctx_dt, dp_dt = dtypes
+    gen = torch.Generator().manual_seed(c)
+    f, r, p, ncells = 3, 37, 1001, 97
+    ctx = torch.randn(f, r, c, generator=gen).to(cuda, ctx_dt)
+    dp = torch.rand(f, p, generator=gen).to(cuda, dp_dt)
+    ranks = torch.randint(0, ncells + 1, (f, p), generator=gen, dtype=torch.int32).to(cuda)
+    rays = torch.randint(0, r, (p,), generator=gen, dtype=torch.int32).to(cuda)
+    n = K4.lift_splat_accumulate.launches
+    got = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    assert K4.lift_splat_accumulate.launches == n + 1
+    want = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
+    torch.cuda.synchronize()
+    # fp32 on both sides; the atomics only reorder the sums
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_lift_splat_backward_matches_plain_autograd(cuda, dtype):
+    """LiftSplat (K4 forward; _ls_bwd's backward with K3's row gather)
+    against autograd through the plain version; both reorder fp32 sums
+    (index_add_ over ray ids), hence a tolerance."""
+    gen = torch.Generator().manual_seed(3)
+    f, r, p, c, ncells = 3, 37, 1001, 64, 97
+    ctx = torch.randn(f, r, c, generator=gen).to(cuda, dtype)
+    dp = torch.rand(f, p, generator=gen).to(cuda, dtype)
+    ranks = torch.randint(0, ncells + 1, (f, p), generator=gen, dtype=torch.int32).to(cuda)
+    rays = torch.randint(0, r, (p,), generator=gen, dtype=torch.int32).to(cuda)
+    g = torch.randn(f, ncells, c, generator=gen).to(cuda, dtype)
+    grads = []
+    for fn in (K4.lift_splat_frames, K4.lift_splat_plain):
+        a, b = ctx.clone().requires_grad_(True), dp.clone().requires_grad_(True)
+        k3 = K1.gather_rows.launches
+        fn(a, b, ranks, rays, ncells).backward(g)
+        grads.append((a.grad, b.grad, K1.gather_rows.launches - k3))
+    torch.cuda.synchronize()
+    (ga, gb, k3), (wa, wb, none) = grads
+    assert (k3, none) == (1, 0) and ga.dtype == gb.dtype == dtype
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(ga.float(), wa.float(), **tol)
+    torch.testing.assert_close(gb.float(), wb.float(), **tol)

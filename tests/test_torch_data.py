@@ -1,8 +1,9 @@
 """The port's own config, data and input modules against their stp3_tpu
 counterparts: the config tree (defaults, every shipped YAML, the dict
-round trip, CLI overrides), chip_smoke.py's in-code configurations, the
-synthetic batch (byte for byte), the trajectory sampler, the instance
-labels and the image preparation."""
+round trip, CLI overrides), chip_smoke.py's in-code configurations (the
+flagship, the nuScenes and the CARLA Planning stages), the synthetic
+batch (byte for byte), the trajectory sampler, the instance labels and
+the image preparation."""
 import argparse
 import glob
 import os
@@ -77,6 +78,18 @@ def test_chip_smoke_planning_cfg_is_planning_yml():
     assert got == want
     tiny = chip_smoke.planning_cfg(tiny=True)
     assert tiny.PRECISION == 32 and tiny.MODEL.REMAT == 'encoder' and tiny.BATCHSIZE == 2
+
+
+def test_chip_smoke_carla_cfg_is_carla_planning_yml():
+    """The agent phase's CARLA_PLANNING overrides, as code, against
+    stp3_tpu/configs/carla/Planning.yml through the port's loader (the LR
+    compares as a float, as in the Planning check above)."""
+    want = tconfig.get_cfg(_args(os.path.join(
+        REPO, 'stp3_tpu', 'configs', 'carla', 'Planning.yml'))).convert_to_dict()
+    got = chip_smoke.carla_planning_cfg().convert_to_dict()
+    want['OPTIMIZER']['LR'] = float(want['OPTIMIZER']['LR'])
+    assert got == want
+    assert got['IMAGE']['FINAL_DIM'] == (256, 256) and got['PLANNING']['SAMPLE_NUM'] == 2400
 
 
 def test_synthetic_batch_is_byte_equal():

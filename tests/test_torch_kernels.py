@@ -2,7 +2,7 @@
 Pallas kernel it replaces (interpret mode, as tests/test_bev_pool.py and
 tests/test_convnext_kernel.py run them), the autograd wirings against
 jax.vjp, CPU dispatch, argument checks, and that the port itself never
-imports jax, flax, optax, stp3_tpu or __graft_entry__.
+imports jax, flax, optax, stp3_tpu, __graft_entry__ or PIL.
 
 The kernels themselves run only on a GPU: tests/test_torch_cuda.py.
 """
@@ -19,10 +19,13 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from stp3_tpu.ops.pallas.bev_pool_kernel import bev_pool_pallas_v2_batched, gather_rows_pallas
+from stp3_tpu.ops.pallas.bev_pool_kernel import (bev_pool_pallas, bev_pool_pallas_v2,
+                                                 bev_pool_pallas_v2_batched, gather_rows_pallas,
+                                                 lift_splat_pallas)
 from stp3_tpu.ops.pallas.convnext_mlp_kernel import convnext_mlp_pallas
 from stp3_tpu_torch.ops.kernels import bev_splat as K1
 from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
+from stp3_tpu_torch.ops.kernels import lift_splat as K4
 
 torch.set_num_threads(2)
 
@@ -95,6 +98,103 @@ def test_bev_splat_gradient_matches_jax_vjp(dtype, monkeypatch):
     np.testing.assert_array_equal(x.grad.float().numpy(), np.asarray(want, np.float32))
 
 
+_PER_FRAME = {'v1': (bev_pool_pallas, K1.bev_pool_v1),
+              'v2': (bev_pool_pallas_v2, K1.bev_pool_v2)}
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('version', ['v1', 'v2'])
+def test_per_frame_entries_match_pallas(version, dtype):
+    """K1's v1 / v2 entries (plain version on the CPU) against
+    bev_pool_pallas / bev_pool_pallas_v2 in interpret mode: forward, and
+    the gradient through each JAX VJP (v2's with its Pallas row gather)."""
+    jfn, tfn = _PER_FRAME[version]
+    jdt, tdt = _DT[dtype]
+    feats, ranks, ncells = _splat_inputs(f=1)
+    feats, ranks = feats[0], ranks[0]
+    g = np.random.RandomState(7).randn(ncells, 8).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(lambda f: jfn(f, jnp.asarray(ranks), ncells), jnp.asarray(feats, jdt))
+        want_grad, = vjp(jnp.asarray(g, jdt))
+    x = torch.from_numpy(feats).to(tdt).requires_grad_(True)
+    got = tfn(x, torch.from_numpy(ranks), ncells)
+    got.backward(torch.from_numpy(g).to(tdt))
+    assert got.dtype == x.grad.dtype == tdt and tuple(got.shape) == (ncells, 8)
+    # fp32: only the summation order differs; bf16: both round the same fp32
+    # sums, which may straddle a rounding boundary by 1 ULP (2^-8)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == 'float32' else dict(atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32), **tol)
+    np.testing.assert_allclose(x.grad.float().numpy(), np.asarray(want_grad, np.float32),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _lift_inputs(f=1, r=20, p=300, c=8, ncells=100, seed=17):
+    rng = np.random.RandomState(seed)
+    ctx = rng.randn(f, r, c).astype(np.float32)
+    dp = rng.rand(f, p).astype(np.float32)
+    ranks = rng.randint(0, ncells + 1, size=(f, p)).astype(np.int32)
+    rays = rng.randint(0, r, size=p).astype(np.int32)
+    return ctx, dp, ranks, rays, ncells
+
+
+def _jax_lift_splat(ctx, dp, ranks, rays, ncells, g):
+    """lift_splat_pallas per frame in interpret mode: (out, d ctx, d dp)."""
+    outs, dctx, ddp = [], [], []
+    with pltpu.force_tpu_interpret_mode():
+        for i in range(ctx.shape[0]):
+            out, vjp = jax.vjp(lambda a, b: lift_splat_pallas(a, b, jnp.asarray(ranks[i]),
+                                                              jnp.asarray(rays), ncells),
+                               jnp.asarray(ctx[i]), jnp.asarray(dp[i]))
+            gc, gd = vjp(jnp.asarray(g[i]))
+            outs.append(np.asarray(out))
+            dctx.append(np.asarray(gc))
+            ddp.append(np.asarray(gd))
+    return np.stack(outs), np.stack(dctx), np.stack(ddp)
+
+
+@pytest.mark.parametrize('frames', [1, 3])
+def test_lift_splat_plain_and_backward_match_pallas(frames):
+    """K4's plain version and LiftSplat's backward (the row gather on the
+    CPU, index_add_ over ray ids, row-wise dot) against lift_splat_pallas
+    and its _ls_bwd, per frame in interpret mode; ``frames`` = 3 is the
+    frame-batched form (one launch on CUDA)."""
+    ctx, dp, ranks, rays, ncells = _lift_inputs(f=frames)
+    g = np.random.RandomState(9).randn(frames, ncells, 8).astype(np.float32)
+    want, want_dctx, want_ddp = _jax_lift_splat(ctx, dp, ranks, rays, ncells, g)
+    c = torch.from_numpy(ctx).requires_grad_(True)
+    d = torch.from_numpy(dp).requires_grad_(True)
+    if frames == 1:
+        got = K4.lift_splat(c[0], d[0], torch.from_numpy(ranks[0]), torch.from_numpy(rays),
+                            ncells)[None]
+    else:
+        got = K4.lift_splat_frames(c, d, torch.from_numpy(ranks), torch.from_numpy(rays),
+                                   ncells)
+    got.backward(torch.from_numpy(g))
+    assert tuple(got.shape) == (frames, ncells, 8) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(c.grad.numpy(), want_dctx, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(d.grad.numpy(), want_ddp, rtol=1e-4, atol=1e-5)
+    assert (ranks == ncells).any() and not d.grad.numpy()[ranks == ncells].any()
+
+
+def test_lift_splat_bf16_casts_like_pallas():
+    """bf16 ctx and dp: fp32 sums cast to ctx's dtype; d ctx in ctx's dtype
+    and d dp in dp's (the casts of _ls_bwd)."""
+    ctx, dp, ranks, rays, ncells = _lift_inputs()
+    g = np.random.RandomState(9).randn(1, ncells, 8).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(lift_splat_pallas(jnp.asarray(ctx[0], jnp.bfloat16),
+                                            jnp.asarray(dp[0], jnp.bfloat16),
+                                            jnp.asarray(ranks[0]), jnp.asarray(rays), ncells),
+                          np.float32)
+    c = torch.from_numpy(ctx[0]).bfloat16().requires_grad_(True)
+    d = torch.from_numpy(dp[0]).bfloat16().requires_grad_(True)
+    got = K4.lift_splat(c, d, torch.from_numpy(ranks[0]), torch.from_numpy(rays), ncells)
+    got.backward(torch.from_numpy(g[0]).bfloat16())
+    assert got.dtype == c.grad.dtype == d.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().float().numpy(), want, rtol=1e-2, atol=1e-2)
+
+
 def _mlp_inputs(n, c=16, seed=0):
     """The inputs of tests/test_convnext_kernel.py::_inputs."""
     rng = np.random.RandomState(seed)
@@ -156,11 +256,18 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     feats, ranks, ncells = (torch.from_numpy(a) if isinstance(a, np.ndarray) else a
                             for a in _splat_inputs())
     margs = [torch.tensor(a, dtype=torch.float32) for a in _mlp_inputs(64)]
-    before = (K1.bev_splat_accumulate.launches, K2.convnext_mlp.launches)
+    largs = [torch.from_numpy(a) for a in _lift_inputs(f=2)[:4]] + [100]
+    counters = (K1.bev_splat_accumulate, K1.bev_pool_v1, K1.bev_pool_v2, K1.gather_rows,
+                K2.convnext_mlp, K4.lift_splat_accumulate)
+    before = [fn.launches for fn in counters]
     assert torch.equal(K1.bev_splat_accumulate(feats, ranks, ncells),
                        K1.bev_splat_accumulate_plain(feats, ranks, ncells))
+    for entry in (K1.bev_pool_v1, K1.bev_pool_v2):
+        assert torch.equal(entry(feats[0], ranks[0], ncells),
+                           K1.bev_splat_plain(feats[:1], ranks[:1], ncells)[0])
     assert torch.equal(K2.convnext_mlp(*margs), K2.convnext_mlp_plain(*margs))
-    assert (K1.bev_splat_accumulate.launches, K2.convnext_mlp.launches) == before
+    assert torch.equal(K4.lift_splat_frames(*largs), K4.lift_splat_plain(*largs))
+    assert [fn.launches for fn in counters] == before
 
 
 def test_wrappers_refuse_bad_arguments_and_non_cpu_non_cuda_devices():
@@ -185,14 +292,26 @@ def test_wrappers_refuse_bad_arguments_and_non_cpu_non_cuda_devices():
         K2.convnext_mlp(margs[0], margs[1][:, :8], *margs[2:])
     with pytest.raises(RuntimeError):
         K2.convnext_mlp(*[a.to('meta') for a in margs])
+    with pytest.raises(ValueError):
+        K1.bev_pool_v1(feats, ranks, ncells)                 # (F, P, C): not one frame
+    ctx, dp, lranks, rays = (torch.from_numpy(a) for a in _lift_inputs(f=2)[:4])
+    with pytest.raises(TypeError):
+        K4.lift_splat_frames(ctx, dp, lranks.long(), rays, 100)
+    with pytest.raises(TypeError):
+        K4.lift_splat_frames(ctx.half(), dp, lranks, rays, 100)
+    with pytest.raises(ValueError):
+        K4.lift_splat_frames(ctx, dp, lranks, rays[:-1], 100)
+    with pytest.raises(RuntimeError):
+        K4.lift_splat_frames(*(t.to('meta') for t in (ctx, dp, lranks, rays)), 100)
 
 
-_FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'stp3_tpu', '__graft_entry__')
+_FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'stp3_tpu', '__graft_entry__', 'PIL')
 
 
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one imported jax in conftest.py): the
-    port's modules pull in nothing of jax, flax, optax or stp3_tpu."""
+    port's modules pull in nothing of jax, flax, optax, stp3_tpu or PIL
+    (the card's machine has no PIL)."""
     code = (
         'import json, sys\n'
         'before = set(sys.modules)\n'
@@ -200,6 +319,8 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch.ops.kernels.bev_splat, stp3_tpu_torch.ops.kernels.convnext_mlp\n'
         'import stp3_tpu_torch.training.trainer, stp3_tpu_torch.datas.synthetic\n'
         'import stp3_tpu_torch.config, chip_smoke\n'
+        'import stp3_tpu_torch.deploy.agent_core, stp3_tpu_torch.ops.kernels.lift_splat\n'
+        'import stp3_tpu_torch.ops.static_splat, stp3_tpu_torch.datas.carla\n'
         'new = set(sys.modules) - before\n'
         f'print(json.dumps(sorted(m for m in new if m.split(".")[0] in {_FOREIGN!r})))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,

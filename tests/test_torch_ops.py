@@ -1,8 +1,10 @@
 """The port's geometry and BEV splat (stp3_tpu_torch/ops) against the JAX
 package on the same numpy inputs, fp32 on the CPU: frustum, un-projection,
-pose chain, voxelisation, and the full project_to_birds_eye_view (pre-warp,
-frame-batched splat, discount) vs JAX's 'scatter' and 'pallas2b'
-(interpret-mode Pallas) methods. Tolerance rtol=atol=1e-4 unless stated."""
+pose chain, voxelisation, bev_pool and the full project_to_birds_eye_view
+(pre-warp, splat, discount) for every method (the Pallas ones in
+interpret mode), and the fused lift + splat with its gradients.
+Tolerance rtol=atol=1e-4 unless stated."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -80,29 +82,101 @@ def test_voxelize_truncates_toward_zero_like_jax():
                                   np.asarray(jbev._ranks(jc, jv, dim)))
 
 
-@pytest.mark.parametrize('method', ['scatter', 'pallas2b'])
-def test_project_to_birds_eye_view_matches_jax(method):
-    """Pre-warp by a real ego-motion chain, voxelise (a third of the points
-    fall outside the grid or the height band), frame-batched splat, and the
-    discount-0.5 accumulate over S=3 frames."""
-    rng = np.random.RandomState(2)
-    b, s, n, d, hf, wf, c = 1, 3, 2, 4, 3, 5, 8
+BEV_DIM = np.array([10, 10, 1])
+
+
+@pytest.mark.parametrize('method', ['sort', 'scatter', 'pallas', 'pallas2'])
+def test_bev_pool_matches_jax_and_the_dense_oracle(method):
+    """tests/test_bev_pool.py's points: coords in [-2, 12) on a 10x10 grid,
+    so a fifth fall outside; feats of invalid points are masked first."""
+    rng = np.random.RandomState(3)
+    feats = rng.randn(300, 8).astype(np.float32)
+    coords = rng.randint(-2, 12, size=(300, 3)).astype(np.int32)
+    coords[:, 2] = 0
+    valid = np.all((coords >= 0) & (coords < BEV_DIM), axis=-1)
+    feats[~valid] = np.nan                   # masked by valid before the scatter
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jbev.bev_pool(jnp.asarray(feats), jnp.asarray(coords),
+                                        jnp.asarray(valid), BEV_DIM, method=method))
+    got = tbev.bev_pool(torch.from_numpy(feats), torch.from_numpy(coords),
+                        torch.from_numpy(valid), BEV_DIM, method=method).numpy()
+    assert got.shape == want.shape == (10, 10, 8)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, tbev.bev_pool_dense_reference(feats, coords, valid, BEV_DIM),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError):
+        tbev.bev_pool(torch.from_numpy(feats), torch.from_numpy(coords),
+                      torch.from_numpy(valid), BEV_DIM, method='pallas3')
+
+
+def _splat_case(seed=2, b=1, s=3):
+    """Geometry of which a third falls outside the grid or the height band,
+    lifted feats, a real ego-motion chain, the 16x16 grid at 1 m."""
+    rng = np.random.RandomState(seed)
+    n, d, hf, wf, c = 2, 4, 3, 5, 8
     geom = np.concatenate([rng.uniform(-10, 10, (b, s, n, d, hf, wf, 2)),
                            rng.uniform(-13, 13, (b, s, n, d, hf, wf, 1))],
                           -1).astype(np.float32)
     feats = rng.randn(b, s, n, d, hf, wf, c).astype(np.float32)
     _, _, ego = _rig(rng, b, s)
     bounds = ([-8.0, 8.0, 1.0], [-8.0, 8.0, 1.0], [-10.0, 10.0, 20.0])
-    res, start, dim = jgeo.calculate_birds_eye_view_parameters(*bounds)
+    return feats, geom, ego, jgeo.calculate_birds_eye_view_parameters(*bounds)
+
+
+@pytest.mark.parametrize('method', ['scatter', 'pallas2b', 'pallas', 'pallas2', 'sort', 'auto'])
+def test_project_to_birds_eye_view_matches_jax(method):
+    """Pre-warp by a real ego-motion chain, voxelise, splat (one K1 launch
+    for 'auto' and 'pallas2b', one per frame for 'pallas' and 'pallas2' on
+    CUDA; the plain versions here), and the discount-0.5 accumulate over
+    S=3 frames. JAX's 'auto' is 'scatter' on the CPU."""
+    feats, geom, ego, (res, start, dim) = _splat_case()
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jbev.project_to_birds_eye_view(
             jnp.asarray(feats), jnp.asarray(geom), jnp.asarray(ego), res, start, dim,
             discount=0.5, method=method))
     got = tbev.project_to_birds_eye_view(torch.from_numpy(feats), torch.from_numpy(geom),
-                                         torch.from_numpy(ego), res, start, dim, 0.5)
+                                         torch.from_numpy(ego), res, start, dim, 0.5,
+                                         method=method)
     assert tuple(got.shape) == want.shape == (1, 3, 16, 16, 8)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.abs(want[:, 0]).sum() > 0 and np.abs(want[:, 2] - want[:, 1]).sum() > 0
+
+
+def test_project_lift_splat_fused_matches_jax_with_gradients():
+    """The fused lift + splat (K4's plain version here) against the JAX
+    package's project_lift_splat_fused (lift_splat_pallas in interpret
+    mode), forward and the gradients of ctx and the depth logits, over
+    B=2, S=3 frames in one K4 call."""
+    rng = np.random.RandomState(5)
+    b, s, n, d, hf, wf, c = 2, 3, 2, 4, 3, 5, 8
+    ctx = rng.randn(b, s, n, hf, wf, c).astype(np.float32)
+    logits = rng.randn(b, s, n, hf, wf, d).astype(np.float32)
+    _, geom, ego, (res, start, dim) = _splat_case(seed=6, b=b, s=s)
+    g = rng.randn(b, s, 16, 16, c).astype(np.float32)
+
+    def jfused(a, lg):
+        return jbev.project_lift_splat_fused(a, lg, jnp.asarray(geom), jnp.asarray(ego), res,
+                                             start, dim, discount=0.5)
+
+    with pltpu.force_tpu_interpret_mode():
+        want, vjp = jax.vjp(jfused, jnp.asarray(ctx), jnp.asarray(logits))
+        want_dctx, want_dlogits = vjp(jnp.asarray(g))
+    tc = torch.from_numpy(ctx).requires_grad_(True)
+    tl = torch.from_numpy(logits).requires_grad_(True)
+    got = tbev.project_lift_splat_fused(tc, tl, torch.from_numpy(geom), torch.from_numpy(ego),
+                                        res, start, dim, 0.5)
+    got.backward(torch.from_numpy(g))
+    assert tuple(got.shape) == want.shape == (b, s, 16, 16, c)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(want_dctx), **TOL)
+    np.testing.assert_allclose(tl.grad.numpy(), np.asarray(want_dlogits), **TOL)
+    # the same function as lifting first and splatting with K1
+    lifted = torch.softmax(tl, -1).movedim(-1, 3)[..., None] * tc[:, :, :, None]
+    np.testing.assert_allclose(
+        got.detach().numpy(),
+        tbev.project_to_birds_eye_view(lifted.detach(), torch.from_numpy(geom),
+                                       torch.from_numpy(ego), res, start, dim, 0.5).numpy(),
+        rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------------------ warp
