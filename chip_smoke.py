@@ -2,18 +2,21 @@
 """Drive the PyTorch port (stp3_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # ... then where a train step's time goes
+    python3 chip_smoke.py --profile    # ... and where each path's time goes
 
 Phases, each printing one line (or a few) before the last:
   1. device: card name and power limit, torch / CUDA versions, TF32 flags;
-  2. build: nvcc-build the BEV splat kernels (K1 and K3) and the fused
-     lift + splat (K4) from csrc/, one nvcc per source, both at once;
+  2. build: nvcc-build the BEV splat kernels (K1 and K3), the fused
+     lift + splat (K4) and the fused ConvNeXt MLP (K2) from csrc/, one
+     nvcc per source, all three at once; each kernel's registers, shared
+     memory and spills as ptxas reports them;
   3. K1 vs its plain version at the serving (F=3) and training (F=6)
      splat shapes, ranks from the flagship rig's real geometry, and at the
      agent's single-frame splat (F=1, the CARLA rig); times of both and of
-     index_add_;
-  4. K2 (fused ConvNeXt MLP, Triton) vs its plain version at the serving
-     and training row counts; times of both;
+     index_add_, the share of the bound, K1's atomic rows per landed
+     point; at the serving shape also the zeroing and the cast alone;
+  4. K2 (fused ConvNeXt MLP, CUDA C++) vs its plain version at the serving
+     and training row counts; times of both and the share of the bound;
   5. K3 (the splat's backward row gather) vs its plain version at the
      training shape (6, 483,840, 64), bf16 and fp32, bit for bit; times of
      both and of torch.gather;
@@ -50,10 +53,12 @@ Phases, each printing one line (or a few) before the last:
      vs dynamic single-frame splat, incremental vs full heads at zero
      ego-motion; each mode's plan_step p50 over 20 ticks, launches per
      tick and peak memory.
-With --profile, after phase 10: the train step split by CUDA events into
-loss (labels + forward + losses), backward and clip + Adam, the host's
-time to issue a step, and a torch.profiler window of 3 steps (kernel
-launches, summed kernel time, the kernels that take the most).
+With --profile, torch.profiler windows of 3 calls (device events, summed
+device time against the wall time, the kernels that take the most) of the
+serving and fused forward + plan, of a train step and of each agent tick
+mode; after phase 10 also the train step split by CUDA events into loss
+(labels + forward + losses), backward and clip + Adam, and the host's
+time to issue a step.
 Then one JSON line with every kernel's numbers (the numbers of the path
 each kernel was measured on at the top level, each path's launches and
 times under "paths"), and last {"ok": true, "device": {...}}. Any failure
@@ -164,7 +169,7 @@ KERNELS = (
      'stp3_tpu/ops/pallas/bev_pool_kernel.py:62', 'per_frame'),
     ('bev_pool_v2', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
      'stp3_tpu/ops/pallas/bev_pool_kernel.py:169', 'per_frame'),
-    ('convnext_mlp', 'triton', 'stp3_tpu_torch/ops/kernels/convnext_mlp.py',
+    ('convnext_mlp', 'cuda', 'stp3_tpu_torch/csrc/convnext_mlp.cu',
      'stp3_tpu/ops/pallas/convnext_mlp_kernel.py:124', 'train'),
     ('gather_rows', 'cuda', 'stp3_tpu_torch/csrc/bev_pool.cu',
      'stp3_tpu/ops/pallas/bev_pool_kernel.py:319', 'train'),
@@ -203,20 +208,47 @@ def expect_launches(what: str, launches: dict, **want) -> None:
         fail(f'{what}: launches {launches}, expected {full}')
 
 
+def ptxas_summary(log: str) -> list:
+    """One 'kernel: registers, shared memory, spills' entry per entry
+    function of an nvcc '-Xptxas -v' log."""
+    import re
+    out, name, spills = [], '?', ''
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the kernel's name and its mangled template arguments
+            base = re.search(r'([a-z][a-z_]*_kernel)I(\w*?)EE', m.group(1))
+            name = (f'{base.group(1)}<{base.group(2).replace("13__nv_bfloat16", "bf16")}>'
+                    if base else m.group(1))
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+        if m:
+            spills = f'spills {m.group(1)}/{m.group(2)} B'
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            smem = re.search(r'(\d+) bytes smem', line)
+            out.append(f'{name}: {m.group(1)} registers, {smem.group(1) if smem else 0} B static '
+                       f'smem, {spills}')
+    return out
+
+
 def build_kernels(repo: str) -> None:
-    """nvcc-build K1+K3 (bev_pool.cu) and K4 (lift_splat.cu) at once, one
-    nvcc per source."""
+    """nvcc-build K1+K3 (bev_pool.cu), K4 (lift_splat.cu) and K2
+    (convnext_mlp.cu) at once, one nvcc per source."""
     from concurrent.futures import ThreadPoolExecutor
+    import torch
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
     from stp3_tpu_torch.ops.kernels import lift_splat as K4
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        infos = list(pool.map(lambda build: build(), (K1.build, K4.build)))
-    for name, info in zip(('K1+K3', 'K4'), infos):
-        regs = [ln.strip() for ln in info['log'].splitlines() if 'registers' in ln]
+    with ThreadPoolExecutor(3) as pool:
+        infos = list(pool.map(lambda build: build(), (K1.build, K4.build, K2.build)))
+    for name, info in zip(('K1+K3', 'K4', 'K2'), infos):
         say(f"[build] {name} {'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s "
-            f"-> {os.path.relpath(info['path'], repo)}; ptxas: {' | '.join(regs)}")
-    say(f'[build] both builds done in {time.perf_counter() - t0:.2f} s of wall time')
+            f"-> {os.path.relpath(info['path'], repo)}; ptxas: "
+            + ' | '.join(ptxas_summary(info['log'])))
+    say(f'[build] K2 dynamic shared memory a CTA: {K2.shared_memory_bytes(torch.bfloat16)} B '
+        f'(bf16 rows), {K2.shared_memory_bytes(torch.float32)} B (fp32 rows)')
+    say(f'[build] all three builds done in {time.perf_counter() - t0:.2f} s of wall time')
 
 
 def fail(msg: str) -> None:
@@ -273,6 +305,22 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, calls: int = 10, reps: int = 7) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times, the median replay (CUDA events)
+    over ``calls``. Unlike ``time_ms`` it leaves out the host's time to
+    issue the call (Python, the wrapper, the launches)."""
+    import torch
+    for _ in range(3):
+        fn()                                  # warm-up: builds, caches, the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, warmup=1, iters=reps) / calls
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -341,28 +389,41 @@ def phase_k1(cfg, device, path: str, b: int = 1, ranks=None):
     # fp32 on both sides; only the (atomic) summation order differs
     ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
     valid = (ranks < ncells).sum().item()
-    ms = time_ms(lambda: K1.bev_splat(feats, ranks, ncells))
-    plain_ms = time_ms(lambda: K1.bev_splat_plain(feats, ranks, ncells))
+    # the timed window: zeroing the (F, ncells, C) fp32 accumulator, the
+    # kernel and the cast of the sums to bf16
+    ms = device_ms(lambda: K1.bev_splat(feats, ranks, ncells))
+    call_ms = time_ms(lambda: K1.bev_splat(feats, ranks, ncells))
+    plain_ms = device_ms(lambda: K1.bev_splat_plain(feats, ranks, ncells))
     # one PyTorch call of the same scatter-add: index_add_ onto a flat buffer
     flat_idx = (ranks.long() + torch.arange(f, device=device)[:, None] * (ncells + 1)).reshape(-1)
     buf = torch.zeros(f * (ncells + 1), c, dtype=feats.dtype, device=device)
     flat_feats = feats.reshape(-1, c)
-    library_ms = time_ms(lambda: buf.index_add_(0, flat_idx, flat_feats))
+    library_ms = device_ms(lambda: buf.index_add_(0, flat_idx, flat_feats))
     # every rank and the rows of the points that land in the grid read once
     # (a dropped point's row is never needed), the (F, ncells, C) result
     # written once; one add per channel of each point that lands
     n_bytes = valid * c * feats.element_size() + nbytes(ranks) + (
         f * ncells * c * feats.element_size())
     bound_ms, bound_by = bound(n_bytes, valid * c, 'fp32')
+    rows = K1.atomic_rows_per_landed_point(ranks, ncells)
     say(f'[K1 {path}] bev_splat F={f} P={p} C={c} ncells={ncells} bf16, invalid share '
         f'{1 - valid / (f * p):.4f}: max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) '
-        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'index_add_ {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
-        f'{n_bytes / 1e6:.1f} MB)')
+        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.4f} ms (zeroing the fp32 sums, the kernel, '
+        f'the cast to bf16; {call_ms:.4f} ms a call with the host\'s issue time), plain '
+        f'{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound '
+        f'{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), bound_share '
+        f'{bound_ms / ms:.3f}; atomic rows per landed point {rows:.4f} (tile {K1.TILE})')
     if not ok:
         fail(f'K1 disagrees with its plain version at F={f}')
+    if path == 'serving':
+        zero_ms = device_ms(lambda: torch.zeros(f, ncells, c, device=device))
+        sums = K1.bev_splat_accumulate(feats, ranks, ncells)
+        cast_ms = device_ms(lambda: sums.to(feats.dtype))
+        say(f'[K1 {path}] of the kernel\'s {ms:.4f} ms: zeroing the fp32 sums alone '
+            f'{zero_ms:.4f} ms, the cast to bf16 alone {cast_ms:.4f} ms')
     return dict(shape=f'F={f} P={p} C={c} ncells={ncells} bf16', max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                bound_share=bound_ms / ms, atomic_rows_per_landed_point=rows)
 
 
 def phase_k2(cfg, device, path: str, b: int = 1):
@@ -388,26 +449,26 @@ def phase_k2(cfg, device, path: str, b: int = 1):
         n = b * frames * nx * ny
         h = rnd(n, c).to(torch.bfloat16)
         x = rnd(n, c).to(torch.bfloat16)
-        t0 = time.perf_counter()
         got = K2.convnext_mlp(h, x, *weights)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
         want = K2.convnext_mlp_plain(h, x, *weights)
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-        t_k = time_ms(lambda: K2.convnext_mlp(h, x, *weights))
-        t_p = time_ms(lambda: K2.convnext_mlp_plain(h, x, *weights))
+        t_k = device_ms(lambda: K2.convnext_mlp(h, x, *weights))
+        t_call = time_ms(lambda: K2.convnext_mlp(h, x, *weights))
+        t_p = device_ms(lambda: K2.convnext_mlp_plain(h, x, *weights))
         # h, x and the weights read once, y written once; two (N, C) x (C, 4C)
         # products of 2 operations per multiply-add, on the bf16 tensor cores
         t_b, by = bound(nbytes(h, x, h) + nbytes(*weights),
                         2 * 2 * n * c * 4 * c, 'bf16')
         say(f'[K2 {path}] convnext_mlp N={n} C={c} bf16: max_abs_err {err:.3e} (rtol=atol=1e-2) '
-            f'{"OK" if ok else "MISMATCH"}; first call (incl. Triton compile) '
-            f'{first_s:.2f} s; kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound {t_b:.4f} ms '
-            f'({by}); no single PyTorch call computes this function')
+            f'{"OK" if ok else "MISMATCH"}; kernel {t_k:.4f} ms ({t_call:.4f} ms a call with the '
+            f'host\'s issue time), plain {t_p:.3f} ms, bound '
+            f'{t_b:.4f} ms ({by}), bound_share {t_b / t_k:.3f}; no single PyTorch call computes '
+            f'this function')
         if not ok:
             fail(f'K2 disagrees with its plain version at N={n}')
-        per_shape.append(dict(n=n, max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b))
+        per_shape.append(dict(n=n, max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                              bound_share=t_b / t_k))
         errs.append(err)
         ms += t_k
         plain_ms += t_p
@@ -415,7 +476,8 @@ def phase_k2(cfg, device, path: str, b: int = 1):
         bound_by.add(by)
     return dict(shape=f'N={" and ".join(str(s["n"]) for s in per_shape)} C={c} bf16',
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by='/'.join(sorted(bound_by)), library_ms=None, per_shape=per_shape)
+                bound_by='/'.join(sorted(bound_by)), library_ms=None, bound_share=bound_ms / ms,
+                per_shape=per_shape)
 
 
 def phase_k3(cfg, device):
@@ -439,12 +501,12 @@ def phase_k3(cfg, device):
                  f'{(got.float() - want.float()).abs().max().item():.3e}')
         parts.append(str(table.dtype).replace('torch.', ''))
     table = table32.to(torch.bfloat16)                      # the bf16 policy's cotangent
-    ms = time_ms(lambda: K.gather_rows(table, ranks))
-    plain_ms = time_ms(lambda: K.gather_rows_plain(table, ranks))
+    ms = device_ms(lambda: K.gather_rows(table, ranks))
+    plain_ms = device_ms(lambda: K.gather_rows_plain(table, ranks))
     # one PyTorch call of the same gather: torch.gather from the padded table
     padded = torch.cat([table, table.new_zeros(f, 1, c)], 1)
     idx = ranks.long().clamp(0, ncells)[..., None].expand(-1, -1, c)
-    library_ms = time_ms(lambda: torch.gather(padded, 1, idx))
+    library_ms = device_ms(lambda: torch.gather(padded, 1, idx))
     # every rank and the table rows that some rank names read once (a row
     # no point lands on is never needed), the (F, P, C) rows written once
     referenced = sum(torch.unique(r[(r >= 0) & (r < ncells)]).numel() for r in ranks)
@@ -508,6 +570,7 @@ def phase_per_frame(cfg, device):
     feats32 = torch.randn(p, c, generator=gen).to(device)
     feats = feats32.to(torch.bfloat16)
     valid = (ranks < ncells).sum().item()
+    rows = K1.atomic_rows_per_landed_point(ranks[None], ncells)
     numbers = {}
     for name, version in (('bev_pool_v1', 'v1'), ('bev_pool_v2', 'v2')):
         entry = getattr(K1, name)
@@ -521,23 +584,26 @@ def phase_per_frame(cfg, device):
         # the same sums (reordered), so at most one bf16 rounding (2^-8) apart
         ok = (torch.allclose(got32, want32, rtol=1e-4, atol=1e-3)
               and torch.allclose(got16.float(), want16.float(), rtol=2 ** -7, atol=1e-3))
-        ms = time_ms(lambda: entry(feats, ranks, ncells))
-        plain_ms = time_ms(lambda: K1.bev_splat_plain(feats[None], ranks[None], ncells))
+        ms = device_ms(lambda: entry(feats, ranks, ncells))
+        plain_ms = device_ms(lambda: K1.bev_splat_plain(feats[None], ranks[None], ncells))
         buf = torch.zeros(ncells + 1, c, dtype=feats.dtype, device=device)
         idx = ranks.long()
-        library_ms = time_ms(lambda: buf.index_add_(0, idx, feats))
+        library_ms = device_ms(lambda: buf.index_add_(0, idx, feats))
         n_bytes = valid * c * feats.element_size() + nbytes(ranks) + ncells * c * 2
         bound_ms, bound_by = bound(n_bytes, valid * c, 'fp32')
         say(f'[K1 {version}] {name} P={p} C={c} ncells={ncells} bf16 (one flagship frame, '
             f'invalid share {1 - valid / p:.4f}): max_abs_err {err:.3e} on fp32 rows (rtol '
             f'1e-4, atol 1e-3), bf16 rows within one rounding, {"OK" if ok else "MISMATCH"}; '
-            f'kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, '
-            f'bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB)')
+            f'kernel {ms:.3f} ms (zeroing, kernel, cast), plain {plain_ms:.3f} ms, index_add_ '
+            f'{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), '
+            f'bound_share {bound_ms / ms:.3f}; atomic rows per landed point {rows:.4f} (tile '
+            f'{K1.TILE})')
         if not ok:
             fail(f'K1 {version} disagrees with its plain version')
         numbers[name] = dict(shape=f'P={p} C={c} ncells={ncells} bf16', max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             library_ms=library_ms, bound_share=bound_ms / ms,
+                             atomic_rows_per_landed_point=rows)
 
     # the per-frame path: the serving splat with one launch per frame, fp32
     # lifted rows so that the methods compare at K1's tolerance
@@ -597,11 +663,11 @@ def phase_k4(cfg, device):
     torch.cuda.synchronize()
     err = (acc_k - acc_p).abs().max().item()
     ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
-    ms = time_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
-    plain_ms = time_ms(lambda: K4.lift_splat_plain(ctx, dp, ranks, rays, ncells))
+    ms = device_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
+    plain_ms = device_ms(lambda: K4.lift_splat_plain(ctx, dp, ranks, rays, ncells))
     # from the same encoder outputs: softmax + K4, against the lift + K1
-    fused_ms = time_ms(lambda: K4.lift_splat_frames(ctx, probs(logits), ranks, rays, ncells))
-    materialised_ms = time_ms(lambda: K1.bev_splat(
+    fused_ms = device_ms(lambda: K4.lift_splat_frames(ctx, probs(logits), ranks, rays, ncells))
+    materialised_ms = device_ms(lambda: K1.bev_splat(
         lift_depth_context(feat, logits).reshape(f, -1, c), ranks, ncells))
     valid = (ranks < ncells).sum().item()
     # every rank read once; the ray id and dp of each point that lands; the
@@ -778,6 +844,8 @@ def phase_flagship(cfg, device, card, fused: bool = False):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         say(f'{tag} forward+plan p50 {p50:.2f} ms (median of 20, CUDA events), '
             f'peak memory {peak:.2f} GiB, on {card}')
+        if '--profile' in sys.argv[1:]:
+            profile_window(lambda i: step(), f'{tag} forward+plan', card)
         if fused:
             # against the materialised path of the same weights, in turns
             p50s = {False: [], True: []}
@@ -1002,32 +1070,41 @@ def phase_agent(device, card):
     return k1, per_tick
 
 
-def profile_ticks(core, mode: str, card, ticks: int = 3):
-    """Where an agent tick's time goes (--profile): torch.profiler over
-    ``ticks`` planned ticks."""
+def profile_window(run, what: str, card, n: int = 3, top: int = 6) -> None:
+    """Where the time of ``n`` calls of ``run(i)`` goes (--profile):
+    torch.profiler's device events and summed device time per call beside
+    the wall time per call, and the kernels that take the most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    frames = list(recorded_ticks(ticks))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for frame, gps, theta in frames:
-            core.push_frame(frame, gps, theta)
-            core.plan_step(3.0, 4, np.array([0.0, 5.0]))
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / ticks
+    wall = (time.perf_counter() - t0) * 1e3 / n
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / ticks
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
     by_name = {}
     for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / ticks, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    say(f'[profile] agent {mode}: {ticks} ticks under torch.profiler, {wall:.2f} ms of wall '
-        f'time per tick, {len(kernels) / ticks:.0f} device events and {busy:.2f} ms of summed '
-        f'device time per tick; on {card}')
-    for name, (ms, n) in top:
-        say(f'[profile]   {ms:8.2f} ms/tick {n / ticks:6.0f} calls/tick  {name[:110]}')
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / n, k + 1)
+    say(f'[profile] {what}: {n} under torch.profiler, {wall:.2f} ms of wall time, '
+        f'{len(kernels) / n:.0f} device events and {busy:.2f} ms of summed device time each '
+        f'(device busy {busy / wall:.2f} of the wall time); on {card}')
+    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        say(f'[profile]   {ms:8.2f} ms each {k / n:6.0f} calls each  {name[:110]}')
+
+
+def profile_ticks(core, mode: str, card, ticks: int = 3):
+    """Where an agent tick's time goes (--profile): ``ticks`` planned ticks."""
+    frames = list(recorded_ticks(ticks))
+
+    def tick(i):
+        core.push_frame(*frames[i])
+        core.plan_step(3.0, 4, np.array([0.0, 5.0]))
+
+    profile_window(tick, f'agent {mode} tick', card, ticks)
 
 
 def synthetic_batches(cfg, n_batches: int, device):
@@ -1168,7 +1245,6 @@ def phase_train(cfg, device, card):
 def profile_train(trainer, batches, card, steps: int = 3):
     """Where a train step's time goes (--profile)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def timed(fn):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1197,22 +1273,8 @@ def profile_train(trainer, batches, card, steps: int = 3):
     say('[profile] train step, median of 6 (ms): ' + ', '.join(
         f'{k} {float(np.median(v)):.2f}' for k, v in parts.items()) + f'; on {card}')
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            trainer.train_step(batches[i % 2])
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-    say(f'[profile] {steps} steps under torch.profiler: {len(kernels) / steps:.0f} device '
-        f'events and {busy:.2f} ms of summed device time per step')
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / steps, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (ms, n) in top:
-        say(f'[profile]   {ms:8.2f} ms/step {n / steps:6.0f} calls/step  {name[:110]}')
+    profile_window(lambda i: trainer.train_step(batches[i % 2]), 'train step', card, steps,
+                   top=15)
 
 
 def main() -> None:

@@ -6,7 +6,7 @@ load a flax tree leaf by leaf) and channels-last public layout. Every
 TPU kernel of the JAX package is a hand-written Hopper kernel here:
 ``ops/kernels/bev_splat.py`` (CUDA C++, ``csrc/bev_pool.cu``: the BEV
 splat and its backward row gather), ``ops/kernels/convnext_mlp.py``
-(Triton) and ``ops/kernels/lift_splat.py`` (CUDA C++,
+(CUDA C++, ``csrc/convnext_mlp.cu``: the fused ConvNeXt MLP) and ``ops/kernels/lift_splat.py`` (CUDA C++,
 ``csrc/lift_splat.cu``: the fused lift + splat). This package never
 imports jax or flax.
 """

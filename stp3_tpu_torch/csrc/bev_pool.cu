@@ -5,73 +5,222 @@
 //   (_forward_v2_batched, kernel _scatter_kernel_v2b)
 // which walks each frame's points serially over a VMEM-resident fp32
 // accumulator. Hopper has no such sequential grid: its blocks run in
-// parallel and in no order, so the accumulation is an fp32 atomicAdd
-// instead.
+// parallel and in no order, so the sums across blocks are fp32 atomics.
 //
 // Contract: feats (F, P, C) fp32 or bf16, ranks (F, P) int32 in
 // [0, ncells]; acc (F, ncells, C) fp32, zeroed by the caller. Point p of
 // frame f adds its C channels to acc[f, ranks[f, p]]. A rank outside
-// [0, ncells) -- ncells is the "invalid point" id -- is skipped.
+// [0, ncells) -- ncells is the "invalid point" id -- is dropped.
 //
-// What bounds it on an H100: the F*P*C fp32 atomics (93 M at the
-// flagship shape F=3, P=483,840, C=64, counted from the shapes), not the
-// 186 MB of bf16 feats it reads once. The 3 x 40,000 x 64 fp32
-// accumulator (30.7 MB) fits in the card's 50 MB L2 (H100 data sheet),
-// so the atomics resolve there without a trip to HBM. Design:
-// one warp per point, its lanes on consecutive channels, so a warp's
-// atomics hit one contiguous row (coalesced), its rank load is a
-// broadcast, and the invalid-point branch is warp-uniform. Invalid
-// points are skipped rather than summed onto an overflow row as the TPU
-// kernel does: here all of them would contend on that one row's C
-// addresses.
+// What bounds it on an H100: the bytes of the rows of the points that land
+// (120 MB of bf16 rows at the serving shape F=3, P=483,840, C=64, 64.4%
+// landing), once the atomics are few: one fp32 atomic per channel per
+// landed point would be 60 M atomics at that shape. The points repeat
+// their cell: with nz = 1 and points ordered (camera, depth bin, pixel
+// row, pixel column), the 28 pixel rows of one column at one depth bin
+// land in one cell, 60 points apart, so neighbours rarely share a rank
+// (0.91 runs per landed point) but a tile of 1,024 consecutive points
+// holds only 0.093 distinct ranks per landed point (0.068 at 2,048; the
+// flagship rig's pre-warped ranks).
 //
-// Numerics: fp32 atomics add in an order that changes from run to run,
-// so the result is nondeterministic in the last bits; compare it with a
-// tolerance, never bit for bit.
+// Design: a block takes a tile of T = 1,024 consecutive points of one
+// frame (on an H100 it ran faster than T = 2,048 and 4,096, which fold
+// more points a run: PERF.md), sorts
+// its (rank, point) pairs by the rank's significant bits
+// (cub::BlockRadixSort; a dropped point sorts last under the key ncells),
+// flags the heads of equal-rank runs and numbers them with a block scan.
+// Runs are summed in registers, each row read once. Where a row is whole
+// 16-byte vectors (C = 64 in bf16: 8 vectors, one coalesced 128-byte
+// read), a group of lanes reads one row a step and takes a run of its own,
+// so a warp sums four runs at once, each with up to four rows in flight
+// (the run phase, not the sort, is what takes the time: a warp that takes
+// one run at a time waits a memory round trip per run); then the group
+// adds its run's row with two red.global.add.v4.f32 a lane (vector atomics
+// of compute capability 9.x that return nothing, so no thread waits on
+// them): 16 vector atomics per run instead of 64 scalar ones per point. A
+// row that is not whole 16-byte vectors (a C that no configuration uses)
+// takes a warp per run, lanes on channels, scalar loads and atomics. A
+// tile with no landing point returns after reading its ranks.
+//
+// Numerics: a run sums in an order fixed by the (stable) sort; the
+// atomics of different tiles add in an order that changes from run to
+// run, so the result is nondeterministic in the last bits; compare it
+// with a tolerance.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <cub/block/block_radix_sort.cuh>
+#include <cub/block/block_scan.cuh>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kSplatThreads = 256;
+constexpr int kItems = 4;                       // ranks a thread sorts
+constexpr int kTile = kSplatThreads * kItems;   // T = 1,024 points a block
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// a vector atomic add to global memory (compute capability 9.x) that
+// returns nothing, so that no thread waits for the old value
+__device__ __forceinline__ void red_add_v4(float* dst, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(dst), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+__device__ __forceinline__ void add_vec(float (&sum)[4], uint4 q) {
+  sum[0] += __uint_as_float(q.x);
+  sum[1] += __uint_as_float(q.y);
+  sum[2] += __uint_as_float(q.z);
+  sum[3] += __uint_as_float(q.w);
+}
+__device__ __forceinline__ void add_vec(float (&sum)[8], uint4 q) {
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(b[k]);
+    sum[2 * k] += f.x;
+    sum[2 * k + 1] += f.y;
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-splat_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
-             float* __restrict__ acc, int64_t n_points, int channels,
-             int ncells) {
-  const int64_t frame = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int64_t n_warps = (int64_t)gridDim.x * kWarpsPerBlock;
-  const T* f_feats = feats + frame * n_points * channels;
-  const int32_t* f_ranks = ranks + frame * n_points;
-  float* f_acc = acc + frame * (int64_t)ncells * channels;
+__global__ void __launch_bounds__(kSplatThreads)
+splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
+                  float* __restrict__ acc, int64_t n_points, int channels, int ncells,
+                  int key_bits, int lanes_per_row) {
+  using Sort = cub::BlockRadixSort<uint32_t, kSplatThreads, kItems, uint16_t>;
+  using Scan = cub::BlockScan<int, kSplatThreads>;
+  __shared__ union {
+    typename Sort::TempStorage sort;
+    int run_key[kTile];                 // written once the sort is done
+  } u;
+  __shared__ typename Scan::TempStorage scan;
+  __shared__ uint16_t point[kTile];     // sorted: each item's point within the tile
+  __shared__ uint16_t run_start[kTile + 1];
+  __shared__ uint32_t last_key[kSplatThreads];
 
-  for (int64_t p = warp; p < n_points; p += n_warps) {
-    const int32_t r = __ldg(f_ranks + p);
-    if (r < 0 || r >= ncells) continue;           // warp-uniform
-    const T* row = f_feats + p * channels;
-    float* dst = f_acc + (int64_t)r * channels;
+  const int tid = threadIdx.x;
+  const int64_t frame = blockIdx.y;
+  const int64_t tile0 = (int64_t)blockIdx.x * kTile;
+  const int32_t* f_ranks = ranks + frame * n_points;
+
+  // striped load of the tile's ranks; a dropped point or a padding item
+  // past the frame's end takes the key ncells, which sorts last
+  uint32_t keys[kItems];
+  uint16_t pts[kItems];
+  int landing = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int local = j * kSplatThreads + tid;
+    const int64_t p = tile0 + local;
+    const int32_t r = p < n_points ? __ldg(f_ranks + p) : ncells;
+    const bool lands = r >= 0 && r < ncells;
+    keys[j] = lands ? (uint32_t)r : (uint32_t)ncells;
+    pts[j] = (uint16_t)local;
+    landing += lands;
+  }
+  if (!__syncthreads_or(landing)) return;
+
+  Sort(u.sort).Sort(keys, pts, 0, key_bits);    // blocked: item j is tid * kItems + j
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) point[tid * kItems + j] = pts[j];
+  last_key[tid] = keys[kItems - 1];
+  __syncthreads();
+
+  // run heads, numbered by an exclusive scan of their counts
+  uint32_t prev = tid > 0 ? last_key[tid - 1] : ~0u;
+  int heads = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    heads += keys[j] != prev;
+    prev = keys[j];
+  }
+  int run, n_runs;
+  Scan(scan).ExclusiveSum(heads, run, n_runs);
+  prev = tid > 0 ? last_key[tid - 1] : ~0u;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (keys[j] != prev) {
+      run_start[run] = (uint16_t)(tid * kItems + j);
+      u.run_key[run] = (int)keys[j];
+      ++run;
+    }
+    prev = keys[j];
+  }
+  if (tid == 0) run_start[n_runs] = (uint16_t)kTile;
+  __syncthreads();
+
+  // the last run (key ncells) is the dropped points
+  const int lane = tid & 31;
+  const T* f_feats = feats + (frame * n_points + tile0) * channels;
+  float* f_acc = acc + frame * (int64_t)ncells * channels;
+  if (lanes_per_row > 0) {
+    // rows of 16-byte vectors: a group of lanes_per_row lanes reads one row
+    // a step and takes a run of its own, so a warp sums 32 / lanes_per_row
+    // runs at once (4 at C = 64 in bf16) with up to four rows each in
+    // flight; the group adds its run's row with float4 atomics
+    constexpr int kV = 16 / sizeof(T);            // channels a vector
+    const int group = lane / lanes_per_row, sub = lane % lanes_per_row;
+    const int groups = 32 / lanes_per_row, row_vecs = channels / kV;
+    for (int r = (tid >> 5) * groups + group; r < n_runs;
+         r += (kSplatThreads / 32) * groups) {
+      const int key = u.run_key[r];
+      if (key >= ncells) continue;
+      const int begin = run_start[r], end = run_start[r + 1];
+      float* dst = f_acc + (int64_t)key * channels;
+      for (int v = sub; v < row_vecs; v += lanes_per_row) {
+        float sum[kV];
+#pragma unroll
+        for (int k = 0; k < kV; ++k) sum[k] = 0.0f;
+#pragma unroll 4
+        for (int i = begin; i < end; ++i) {
+          add_vec(sum, __ldg(reinterpret_cast<const uint4*>(
+                                 f_feats + (int64_t)point[i] * channels) + v));
+        }
+#pragma unroll
+        for (int k = 0; k < kV; k += 4) {
+          red_add_v4(dst + v * kV + k, sum[k], sum[k + 1], sum[k + 2], sum[k + 3]);
+        }
+      }
+    }
+    return;
+  }
+  // other rows: warps take whole runs, lanes on channels, scalar atomics
+  for (int r = tid >> 5; r < n_runs; r += kSplatThreads / 32) {
+    const int key = u.run_key[r];
+    if (key >= ncells) continue;                  // warp-uniform
+    const int begin = run_start[r], end = run_start[r + 1];
+    float* dst = f_acc + (int64_t)key * channels;
     for (int c = lane; c < channels; c += 32) {
-      atomicAdd(dst + c, to_f32(row[c]));
+      float sum = 0.0f;
+#pragma unroll 4
+      for (int i = begin; i < end; ++i) {
+        sum += to_f32(f_feats[(int64_t)point[i] * channels + c]);
+      }
+      atomicAdd(dst + c, sum);
     }
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* feats, const int32_t* ranks, float* acc,
-                   int n_frames, int64_t n_points, int channels, int ncells,
-                   cudaStream_t stream) {
-  const int64_t blocks = (n_points + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  dim3 grid((unsigned)(blocks < 1048576 ? blocks : 1048576), (unsigned)n_frames);
-  splat_kernel<T><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(feats), ranks, acc, n_points, channels, ncells);
+cudaError_t launch(const void* feats, const int32_t* ranks, float* acc, int n_frames,
+                   int64_t n_points, int channels, int ncells, cudaStream_t stream) {
+  int key_bits = 1;
+  while (key_bits < 31 && ((int64_t)1 << key_bits) <= ncells) ++key_bits;   // holds ncells
+  // 16-byte vectors when a row is whole vectors and both bases are aligned:
+  // lanes a row, the row's vectors rounded up to a power of two, at most 32
+  int lanes_per_row = 0;
+  const int row_bytes = channels * (int)sizeof(T);
+  if (row_bytes % 16 == 0 && (((uintptr_t)feats | (uintptr_t)acc) & 15) == 0) {
+    lanes_per_row = 1;
+    while (lanes_per_row < 32 && lanes_per_row * 16 < row_bytes) lanes_per_row <<= 1;
+  }
+  const int64_t tiles = (n_points + kTile - 1) / kTile;
+  if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, (unsigned)n_frames);
+  splat_tile_kernel<T><<<grid, kSplatThreads, 0, stream>>>(
+      static_cast<const T*>(feats), ranks, acc, n_points, channels, ncells, key_bits,
+      lanes_per_row);
   return cudaGetLastError();
 }
 
@@ -168,7 +317,7 @@ extern "C" int bev_splat_accumulate(const void* feats, int dtype,
                                     int n_frames, int64_t n_points,
                                     int channels, int ncells, void* stream) {
   if (n_frames <= 0 || n_points <= 0) return (int)cudaSuccess;
-  if (n_frames > 65535 || channels <= 0) return (int)cudaErrorInvalidValue;
+  if (n_frames > 65535 || channels <= 0 || ncells <= 0) return (int)cudaErrorInvalidValue;
   const int32_t* r = static_cast<const int32_t*>(ranks);
   float* a = static_cast<float*>(acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -220,7 +220,7 @@ class DeepLabHead(ChannelsLast):
 class ConvNeXtBlock(ChannelsLast):
     """dwconv 7x7 -> LN -> pw 4x -> GELU -> pw -> gamma -> + skip.
 
-    With a bf16 input the LN..skip tail runs as K2, the fused Triton
+    With a bf16 input the LN..skip tail runs as K2, the fused CUDA
     kernel (``ops/kernels/convnext_mlp``), whose math is exactly this
     block's bf16 function (tanh GELU, bf16 products, fp32 accumulation).
     With an fp32 input it takes the unfused path with exact-erf GELU, as

@@ -13,7 +13,10 @@ dropped point.
 
 Both kernels are ``csrc/bev_pool.cu`` (its comments say what bounds each
 and why it is built the way it is); this module builds that file with
-nvcc at first use, binds it with ctypes and checks the arguments.
+nvcc at first use, binds it with ctypes and checks the arguments. K1
+sorts each tile of ``TILE`` consecutive points by rank and adds each run
+of equal ranks with one vector atomic per lane;
+``atomic_rows_per_landed_point`` counts those runs from the ranks.
 ``bev_splat`` is a ``torch.autograd.Function`` whose forward is K1 and
 whose backward is K3.
 
@@ -39,6 +42,8 @@ import torch
 from stp3_tpu_torch.ops.kernels.nvcc_build import load_library
 
 _LIB = {}
+# K1's points per block, kTile in csrc/bev_pool.cu
+TILE = 1024
 
 
 def build() -> dict:
@@ -103,6 +108,24 @@ def bev_splat_accumulate(feats: torch.Tensor, ranks: torch.Tensor,
                          ncells: int) -> torch.Tensor:
     """(F, ncells, C) fp32 per-frame sums; the kernel on CUDA tensors."""
     return _accumulate(feats, ranks, ncells, bev_splat_accumulate)
+
+
+def atomic_rows_per_landed_point(ranks: torch.Tensor, ncells: int, tile: int = TILE) -> float:
+    """K1's atomic rows per landed point: the distinct (tile, rank) pairs
+    of the points that land (rank in [0, ncells)), over those points, for
+    tiles of ``tile`` consecutive points of each frame of (F, P) ``ranks``.
+    Each such pair is one run of the kernel, which adds its row with one
+    vector atomic a lane. 0.0 when no point lands."""
+    f, p = ranks.shape
+    lands = (ranks >= 0) & (ranks < ncells)
+    n = int(lands.sum())
+    if n == 0:
+        return 0.0
+    n_tiles = -(-p // tile)
+    tile_of = (torch.arange(f, device=ranks.device)[:, None] * n_tiles
+               + torch.arange(p, device=ranks.device)[None] // tile)
+    pairs = tile_of * ncells + ranks.long()
+    return torch.unique(pairs[lands]).numel() / n
 
 
 def _accumulate(feats: torch.Tensor, ranks: torch.Tensor, ncells: int,

@@ -1,4 +1,4 @@
-"""K2: the fused ConvNeXt MLP tail, as a Triton kernel for Hopper.
+"""K2: the fused ConvNeXt MLP tail, a CUDA C++ kernel for Hopper.
 
 Replaces ``stp3_tpu/ops/pallas/convnext_mlp_kernel.py::convnext_mlp_pallas``
 (kernel ``_mlp_kernel``). Over (N, C) rows it computes
@@ -11,21 +11,13 @@ Replaces ``stp3_tpu/ops/pallas/convnext_mlp_kernel.py::convnext_mlp_pallas``
 
 with the rounding points of the JAX plain mirror ``_mlp_reference``.
 
-Why Triton: per row tile the work is one normalisation reduction and two
-tile-local products (64 -> 256 -> 64) whose operands and the (rows, 4C)
-intermediate fit on chip. ``tl.dot`` emits Hopper's tensor-core
-instructions, so Triton expresses the whole fused chain -- whose point is
-that the (N, 4C) tensor never reaches device memory -- as well as
-hand-written CUDA would.
-
-What bounds it on an H100: bytes. Counted from the shapes, at C = 64 a
-row reads h and x and writes y (3 x 128 B in bf16) against 2 x 64 x 256
-x 2 = 65,536 FLOPs, about 170 FLOP/byte, below the ~295 FLOP/byte at
-which the card's bf16 tensor cores, not its HBM, become the limit (H100
-data sheet: 989 TFLOP/s, 3.35 TB/s); the unfused chain would also write
-and re-read the (N, 256) hidden tensor and the LayerNorm / GELU
-intermediates. The design keeps the hidden tile in registers and reads
-each weight matrix once per program, from L2.
+The kernel is ``csrc/convnext_mlp.cu`` (its comments say what bounds it
+and why it is built the way it is: persistent CTAs with the weights
+resident in shared memory, tiles brought in by bulk copies from a
+producer warp, both products as wgmma with the hidden chunk fed from
+registers); this module builds it with nvcc at first use, binds it with
+ctypes and checks the arguments. It is built for C = 64, every
+configuration's width; a CUDA tensor of another C is refused.
 
 Backward: ``convnext_mlp`` is a ``torch.autograd.Function`` whose
 backward is autograd through ``convnext_mlp_plain`` on the saved inputs,
@@ -40,10 +32,12 @@ the kernel or raises. ``convnext_mlp.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-_BLOCK_M = 64       # rows per program: the wgmma M tile; ragged tail masked
-_NUM_WARPS = 8      # the (64, 256) fp32 hidden tile spread over 256 threads
+from stp3_tpu_torch.ops.kernels.nvcc_build import load_library
+
 _SQRT_2_OVER_PI = 0.7978845608028654
 _EPS = 1e-6
 
@@ -69,53 +63,36 @@ def convnext_mlp_plain(h, x, scale, bias, w1, b1, w2, b2, gamma):
     return y.to(x.dtype)
 
 
-_KERNEL = None
+_LIB = {}
+
+
+def build() -> dict:
+    """Build (or reuse) and bind the kernel library; returns the build info
+    from ``nvcc_build.load_library``."""
+    lib, info = load_library('convnext_mlp', ['convnext_mlp.cu'])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = lib.convnext_mlp
+    fn.argtypes = [ptr, ptr, ptr, i32] + [ptr] * 7 + [i32, i32, ptr]
+    fn.restype = ctypes.c_int
+    lib.convnext_mlp_channels.restype = ctypes.c_int
+    lib.convnext_mlp_smem_bytes.argtypes = [i32]
+    lib.convnext_mlp_smem_bytes.restype = ctypes.c_int
+    _LIB['convnext_mlp'] = fn
+    _LIB['channels'] = lib.convnext_mlp_channels()
+    _LIB['smem_bytes'] = lib.convnext_mlp_smem_bytes
+    return info
 
 
 def _kernel():
-    """Build (once) and return the @triton.jit kernel. Triton is imported
-    here, not at module import: CPU-only hosts have no triton."""
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    import triton
-    import triton.language as tl
+    if 'convnext_mlp' not in _LIB:
+        build()
+    return _LIB['convnext_mlp'], _LIB['channels']
 
-    @triton.jit
-    def _mlp_kernel(h_ptr, x_ptr, out_ptr, scale_ptr, bias_ptr, w1_ptr, b1_ptr,
-                    w2_ptr, b2_ptr, gamma_ptr, n_rows,
-                    C: tl.constexpr, C4: tl.constexpr, BLOCK_M: tl.constexpr,
-                    EPS: tl.constexpr, K0: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.arange(0, C)
-        hid = tl.arange(0, C4)
-        offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-        mask = (rows[:, None] < n_rows) & (cols[None, :] < C)
 
-        h = tl.load(h_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        mean = tl.sum(h, axis=1) / C
-        var = tl.sum(h * h, axis=1) / C - mean * mean
-        u = (h - mean[:, None]) / tl.sqrt(var[:, None] + EPS)
-        u = (u * tl.load(scale_ptr + cols)[None, :]
-             + tl.load(bias_ptr + cols)[None, :])
-
-        w1 = tl.load(w1_ptr + cols[:, None] * C4 + hid[None, :])      # (C, 4C) bf16
-        a = tl.dot(u.to(tl.bfloat16), w1, out_dtype=tl.float32)
-        a = a + tl.load(b1_ptr + hid)[None, :]
-        # tanh(z) = 1 - 2 / (exp(2z) + 1): exact limits at +-inf in fp32
-        z = K0 * (a + 0.044715 * a * a * a)
-        g = 0.5 * a * (2.0 - 2.0 / (tl.exp(2.0 * z) + 1.0))
-
-        w2 = tl.load(w2_ptr + hid[:, None] * C + cols[None, :])       # (4C, C) bf16
-        o = tl.dot(g.to(tl.bfloat16), w2, out_dtype=tl.float32)
-        o = o + tl.load(b2_ptr + cols)[None, :]
-        xr = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        y = xr + tl.load(gamma_ptr + cols)[None, :] * o
-        tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=mask)
-
-    _KERNEL = (_mlp_kernel, triton.cdiv)
-    return _KERNEL
+def shared_memory_bytes(dtype: torch.dtype) -> int:
+    """The dynamic shared memory a CTA of the kernel takes for fp32 or bf16 rows."""
+    _kernel()
+    return _LIB['smem_bytes'](0 if dtype == torch.float32 else 1)
 
 
 def _check(h, x, scale, bias, w1, b1, w2, b2, gamma):
@@ -138,31 +115,36 @@ def _check(h, x, scale, bias, w1, b1, w2, b2, gamma):
 
 
 def _launch(h, x, scale, bias, w1, b1, w2, b2, gamma):
-    """One launch of the Triton kernel on CUDA operands."""
+    """One launch of the kernel on CUDA operands."""
     n, c = h.shape
-    c4 = w1.shape[1]
-    if c & (c - 1) or c4 & (c4 - 1) or c < 16:
-        raise ValueError(f'kernel needs power-of-two C >= 16 and 4C, got {c}, {c4}')
+    kernel, channels = _kernel()
+    if c != channels:
+        raise ValueError(f'the kernel is built for C={channels}, got C={c}')
     if not (h.is_contiguous() and x.is_contiguous()):
         raise ValueError('h and x must be contiguous (N, C) rows')
-    kernel, cdiv = _kernel()
-    f32 = torch.float32
+    if (h.data_ptr() | x.data_ptr()) % 16:
+        raise ValueError('h and x must start on a 16-byte boundary')
+    f32, bf16 = torch.float32, torch.bfloat16
+    params = [t.to(f32).contiguous() for t in (scale, bias, b1, b2, gamma)]
+    w1, w2 = (w.to(bf16).contiguous() for w in (w1, w2))
     out = torch.empty_like(x)
+    if n == 0:
+        return out
     with torch.cuda.device(h.device):
-        kernel[(cdiv(n, _BLOCK_M),)](
-            h, x, out, scale.to(f32).contiguous(), bias.to(f32).contiguous(),
-            w1.to(torch.bfloat16).contiguous(), b1.to(f32).contiguous(),
-            w2.to(torch.bfloat16).contiguous(), b2.to(f32).contiguous(),
-            gamma.to(f32).contiguous(), n,
-            C=c, C4=c4, BLOCK_M=_BLOCK_M, EPS=_EPS, K0=_SQRT_2_OVER_PI,
-            num_warps=_NUM_WARPS)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(h.data_ptr(), x.data_ptr(), out.data_ptr(), 0 if h.dtype == f32 else 1,
+                     params[0].data_ptr(), params[1].data_ptr(), w1.data_ptr(),
+                     params[2].data_ptr(), w2.data_ptr(), params[3].data_ptr(),
+                     params[4].data_ptr(), n, c, stream)
+    if err != 0:
+        raise RuntimeError(f'convnext_mlp kernel launch failed: cudaError {err}')
     convnext_mlp.launches += 1
     return out
 
 
 class ConvNextMLP(torch.autograd.Function):
-    """Forward: the Triton kernel for CUDA operands, the plain version for
-    CPU ones. Backward: autograd through the plain version."""
+    """Forward: the kernel for CUDA operands, the plain version for CPU
+    ones. Backward: autograd through the plain version."""
 
     @staticmethod
     def forward(ctx, *args):

@@ -1,6 +1,6 @@
 """The port's hand-written kernels (K1 with its v1 / v2 entries, K2, K3,
-K4) and their autograd wirings
-against their plain versions on an NVIDIA GPU. Imports no jax, so it runs on a machine with the card (and
+K4) and their autograd wirings against their plain versions on an NVIDIA
+GPU. Imports no jax, so it runs on a machine with the card (and
 no jax: --noconftest skips tests/conftest.py, which sets jax up):
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
@@ -42,7 +42,33 @@ def test_bev_splat_kernel_matches_plain(cuda, dtype, c):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('n', [500, 2049])
+@pytest.mark.parametrize('case', ['one_rank', 'all_invalid', 'ragged'])
+@pytest.mark.parametrize('c', [3, 16, 64])
+def test_bev_splat_kernel_edge_cases_match_plain(cuda, dtype, case, c):
+    """Every point on one rank (one run a tile: maximum contention), every
+    point dropped, and P = 2 x 4096 + 77 (a ragged last tile of 77
+    points), over both row paths: 16-byte vectors (C = 16, 64) and scalars
+    (C = 3). Ranks stay in [0, ncells], the plain version's domain."""
+    gen = torch.Generator().manual_seed(c)
+    f, p, ncells = 2, 2 * 4096 + 77, 97
+    feats = torch.randn(f, p, c, generator=gen).to(cuda, dtype)
+    ranks = {'one_rank': torch.full((f, p), 5, dtype=torch.int32),
+             'all_invalid': torch.full((f, p), ncells, dtype=torch.int32),
+             'ragged': torch.randint(0, ncells + 1, (f, p), generator=gen, dtype=torch.int32),
+             }[case].to(cuda)
+    n = K1.bev_splat_accumulate.launches
+    got = K1.bev_splat_accumulate(feats, ranks, ncells)
+    assert K1.bev_splat_accumulate.launches == n + 1
+    want = K1.bev_splat_accumulate_plain(feats, ranks, ncells)
+    torch.cuda.synchronize()
+    # fp32 sums on both sides, in another order (runs of up to 1,024 rows)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    if case == 'all_invalid':
+        assert not got.any()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('n', [1, 63, 64, 65, 500, 2049, 240000])
 def test_convnext_mlp_kernel_matches_plain(cuda, dtype, n):
     gen = torch.Generator().manual_seed(n)
     c = 64
@@ -60,6 +86,18 @@ def test_convnext_mlp_kernel_matches_plain(cuda, dtype, n):
     want = K2.convnext_mlp_plain(h, x, *weights)
     # the bf16 matmul operands can round one ULP apart (tests/test_convnext_kernel.py)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize('c', [16, 32])
+def test_convnext_mlp_kernel_refuses_a_width_it_was_not_built_for(cuda, c):
+    gen = torch.Generator().manual_seed(c)
+    args = [torch.randn(*shape, generator=gen).to(cuda) for shape in (
+        (100, c), (100, c), (c,), (c,), (c, 4 * c), (4 * c,), (4 * c, c), (c,), (c,))]
+    args[:2] = [a.to(torch.bfloat16) for a in args[:2]]
+    n = K2.convnext_mlp.launches
+    with pytest.raises(ValueError, match='built for C=64'):
+        K2.convnext_mlp(*args)
+    assert K2.convnext_mlp.launches == n
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])

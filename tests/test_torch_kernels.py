@@ -9,8 +9,10 @@ The kernels themselves run only on a GPU: tests/test_torch_cuda.py.
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +57,54 @@ def test_bev_splat_plain_matches_pallas(dtype):
     # fp32 sums, which may straddle a rounding boundary by 1 ULP (2^-8)
     tol = dict(atol=1e-4, rtol=0) if dtype == 'float32' else dict(atol=1e-2, rtol=1e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+def _atomic_rows_numpy(ranks, ncells, tile):
+    """Distinct ranks that land, counted tile by tile of each frame with
+    np.unique, over the points that land."""
+    runs = landed = 0
+    for frame in ranks:
+        for start in range(0, frame.shape[0], tile):
+            r = frame[start:start + tile]
+            r = r[(r >= 0) & (r < ncells)]
+            runs += np.unique(r).size
+            landed += r.size
+    return runs / landed
+
+
+@pytest.mark.parametrize('tile', [1024, 2048, 4096])
+def test_atomic_rows_per_landed_point_counts_distinct_ranks_per_tile(tile):
+    """Seeded ranks with dropped points on both sides of [0, ncells) and a
+    ragged last tile (P = 2 x 4096 + 777); by default the helper counts at
+    the kernel's own tile (kSplatThreads x kItems in csrc/bev_pool.cu)."""
+    rng = np.random.RandomState(tile)
+    ncells = 300
+    ranks = rng.randint(-3, ncells + 4, size=(3, 2 * 4096 + 777)).astype(np.int32)
+    got = K1.atomic_rows_per_landed_point(torch.from_numpy(ranks), ncells, tile)
+    assert got == pytest.approx(_atomic_rows_numpy(ranks, ncells, tile), rel=1e-12)
+    assert K1.atomic_rows_per_landed_point(torch.full((2, 10), ncells, dtype=torch.int32),
+                                           ncells, tile) == 0.0
+    src = (Path(K1.__file__).parents[2] / 'csrc' / 'bev_pool.cu').read_text()
+    threads, items = (int(re.search(rf'constexpr int {name} = (\d+);', src).group(1))
+                      for name in ('kSplatThreads', 'kItems'))
+    assert threads * items == K1.TILE == 1024
+    assert K1.atomic_rows_per_landed_point(torch.from_numpy(ranks), ncells) == pytest.approx(
+        _atomic_rows_numpy(ranks, ncells, K1.TILE), rel=1e-12)
+
+
+def test_atomic_rows_per_landed_point_on_the_flagship_rig():
+    """The flagship rig's pre-warped serving ranks (F=3, 483,840 points,
+    40,000 cells): a tile of 2,048 points holds ~0.068 distinct ranks per
+    landed point (the figure K1's design rests on), ~0.91 runs of equal
+    consecutive ranks."""
+    import chip_smoke
+    ranks, ncells = chip_smoke.splat_ranks(chip_smoke.flagship_cfg(), 'cpu')
+    assert tuple(ranks.shape) == (3, 483840) and ncells == 40000
+    assert abs(K1.atomic_rows_per_landed_point(ranks, ncells, 2048) - 0.068) <= 0.005
+    lands = ranks < ncells
+    heads = torch.ones_like(lands)
+    heads[:, 1:] = ranks[:, 1:] != ranks[:, :-1]
+    assert abs((heads & lands).sum().item() / lands.sum().item() - 0.909) <= 0.005
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
