@@ -27,8 +27,10 @@ Phases, each printing one line (or a few) before the last:
      with method 'pallas' / 'pallas2' (3 launches, one per frame) against
      method 'auto' (one launch for all frames);
   [K4]: the fused lift + splat at the flagship fused shape (F=3) against
-     its plain version, beside the path it replaces (the lift, then K1),
-     and its backward against autograd through the plain version;
+     its plain version, beside the path it replaces (the lift, then K1):
+     device time, one event-timed call and the time with the L2 evicted,
+     the share of the bound, K4's atomic rows per landed point and its
+     ptxas report; its backward against autograd through the plain version;
   7. CPU-vs-CUDA parity of the tiny model in fp32 (same seeded weights),
      every head, the planner costs on a shared occupancy, and the refined
      trajectory;
@@ -45,7 +47,9 @@ Phases, each printing one line (or a few) before the last:
      parameters changed, step p50, samples/s and peak memory;
  11. [fused]: the flagship with fused_lift_splat: fp32 BEV features of the
      fused and materialised paths of the same weights, then forward + plan
-     under the bf16 policy (K4 once, K2 twice, K1 never) and its p50;
+     under the bf16 policy (K4 once, K2 twice, K1 never) and its p50; then
+     [fused turns]: the fused and the materialised step of the same
+     weights in turns, 4 each, alternating (p50 of 20 steps a turn);
  12. [agent]: the CARLA Planning stage at full width (4 cameras at
      256x256, 200x200 BEV at 0.2 m, 2,400 candidates, seeded fp32 weights):
      AgentCore in its three tick modes over recorded ticks (seeded uint8
@@ -58,7 +62,9 @@ device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
 mode; after phase 10 also the train step split by CUDA events into loss
 (labels + forward + losses), backward and clip + Adam, and the host's
-time to issue a step.
+time to issue a step; in [fused turns] per turn the host's issue time,
+the SM clock and power, the device's events, time and idle gaps, then the
+kernels and the host ops of each variant.
 Then one JSON line with every kernel's numbers (the numbers of the path
 each kernel was measured on at the top level, each path's launches and
 times under "paths"), and last {"ok": true, "device": {...}}. Any failure
@@ -208,6 +214,12 @@ def expect_launches(what: str, launches: dict, **want) -> None:
         fail(f'{what}: launches {launches}, expected {full}')
 
 
+# the kernels' mangled template arguments; a substitution (S_, S0_, ...)
+# repeats an earlier argument, in these kernels the one before it
+_MANGLED = {'13__nv_bfloat16': 'bf16', 'f': 'float', 't': 'uint16_t', 'j': 'uint32_t',
+            '5uint4': 'uint4'}
+
+
 def ptxas_summary(log: str) -> list:
     """One 'kernel: registers, shared memory, spills' entry per entry
     function of an nvcc '-Xptxas -v' log."""
@@ -218,8 +230,12 @@ def ptxas_summary(log: str) -> list:
         if m:
             # the kernel's name and its mangled template arguments
             base = re.search(r'([a-z][a-z_]*_kernel)I(\w*?)EE', m.group(1))
-            name = (f'{base.group(1)}<{base.group(2).replace("13__nv_bfloat16", "bf16")}>'
-                    if base else m.group(1))
+            name = m.group(1)
+            if base:
+                args = []
+                for tok in re.findall(r'13__nv_bfloat16|5uint4|S\d*_|[a-z]', base.group(2)):
+                    args.append(args[-1] if tok.startswith('S') else _MANGLED.get(tok, tok))
+                name = f'{base.group(1)}<{", ".join(args)}>'
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
         if m:
             spills = f'spills {m.group(1)}/{m.group(2)} B'
@@ -634,6 +650,50 @@ def phase_per_frame(cfg, device):
     return numbers, path_launches
 
 
+def cold_ms(fn, flush) -> float:
+    """``device_ms`` of ``fn`` with ``flush`` (a buffer larger than the
+    card's 50 MB L2) zeroed before each call, less the zeroing's own time:
+    the time of a call that finds its inputs out of the L2."""
+    return device_ms(lambda: (flush.zero_(), fn())) - device_ms(flush.zero_)
+
+
+def k4_inputs(cfg, device):
+    """The fused splat's inputs at the flagship rig: (F, N, Hf, Wf, C) bf16
+    context and (F, N, Hf, Wf, D) bf16 depth logits, seeded, of F = rf
+    frames; the (F, P) pre-warped ranks of the rig's real geometry; the
+    (P,) ray ids; ncells."""
+    import torch
+    from stp3_tpu_torch.ops.bev_pool import lift_ray_ids
+    ranks, ncells = splat_ranks(cfg, device)
+    mc = model_cfg(cfg)
+    f = ranks.shape[0]
+    n, d, c = len(cfg.IMAGE.NAMES), mc.depth_channels, cfg.MODEL.ENCODER.OUT_CHANNELS
+    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    feat = torch.randn(f, n, hf, wf, c, generator=gen, device=device).to(torch.bfloat16)
+    logits = torch.randn(f, n, hf, wf, d, generator=gen, device=device).to(torch.bfloat16)
+    return feat, logits, ranks, lift_ray_ids(n, d, hf, wf, device), ncells
+
+
+def depth_probs(logits):
+    """(F, N, Hf, Wf, D) depth logits -> (F, P) probabilities in K4's point
+    order (camera, depth bin, pixel row, pixel column)."""
+    import torch
+    return torch.softmax(logits, -1).movedim(-1, 2).reshape(logits.shape[0], -1).contiguous()
+
+
+def k4_bound(ctx, dp, ranks, rays, ncells):
+    """(bound_ms, bound_by, bytes) of K4: every rank read once; the ray id
+    and dp of each point that lands; the ctx table once; the (F, ncells,
+    C) result written once in ctx's dtype; a multiply and an add per
+    channel of each point that lands."""
+    f, _, c = ctx.shape
+    valid = (ranks < ncells).sum().item()
+    n_bytes = (nbytes(ranks) + valid * (rays.element_size() + dp.element_size()) + nbytes(ctx)
+               + f * ncells * c * ctx.element_size())
+    return bound(n_bytes, 2 * valid * c, 'fp32') + (n_bytes,)
+
+
 def phase_k4(cfg, device):
     """[K4]: the fused lift + splat at the flagship fused shape (F = rf
     frames, bf16 ctx and depth probabilities, the rig's real ranks) against
@@ -641,51 +701,48 @@ def phase_k4(cfg, device):
     autograd through the plain version."""
     import torch
     from stp3_tpu_torch.models.stp3 import lift_depth_context
-    from stp3_tpu_torch.ops.bev_pool import lift_ray_ids
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
     from stp3_tpu_torch.ops.kernels import lift_splat as K4
-    ranks, ncells = splat_ranks(cfg, device)
-    mc = model_cfg(cfg)
+    feat, logits, ranks, rays, ncells = k4_inputs(cfg, device)
     f, p = ranks.shape
-    n, d, c = len(cfg.IMAGE.NAMES), mc.depth_channels, cfg.MODEL.ENCODER.OUT_CHANNELS
-    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    feat = torch.randn(f, n, hf, wf, c, generator=gen, device=device).to(torch.bfloat16)
-    logits = torch.randn(f, n, hf, wf, d, generator=gen, device=device).to(torch.bfloat16)
-    rays = lift_ray_ids(n, d, hf, wf, device)
-
-    def probs(lg):
-        return torch.softmax(lg, -1).movedim(-1, 2).reshape(f, -1).contiguous()
-
-    ctx, dp = feat.reshape(f, -1, c), probs(logits)
+    c = feat.shape[-1]
+    ctx, dp = feat.reshape(f, -1, c), depth_probs(logits)
     acc_k = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
     acc_p = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
     torch.cuda.synchronize()
     err = (acc_k - acc_p).abs().max().item()
     ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
+    # the timed window: zeroing the (F, ncells, C) fp32 sums, the kernel and
+    # the cast of the sums to bf16
     ms = device_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
+    call_ms = time_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
+    flush = torch.empty(32 * 2 ** 20, device=device)          # 128 MB of fp32
+    cold = cold_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells), flush)
+    del flush
     plain_ms = device_ms(lambda: K4.lift_splat_plain(ctx, dp, ranks, rays, ncells))
     # from the same encoder outputs: softmax + K4, against the lift + K1
-    fused_ms = device_ms(lambda: K4.lift_splat_frames(ctx, probs(logits), ranks, rays, ncells))
+    fused_ms = device_ms(lambda: K4.lift_splat_frames(ctx, depth_probs(logits), ranks, rays,
+                                                      ncells))
     materialised_ms = device_ms(lambda: K1.bev_splat(
         lift_depth_context(feat, logits).reshape(f, -1, c), ranks, ncells))
     valid = (ranks < ncells).sum().item()
-    # every rank read once; the ray id and dp of each point that lands; the
-    # ctx table once; the (F, ncells, C) result written once in ctx's dtype;
-    # a multiply and an add per channel of each point that lands
-    n_bytes = (nbytes(ranks) + valid * (rays.element_size() + dp.element_size()) + nbytes(ctx)
-               + f * ncells * c * ctx.element_size())
-    bound_ms, bound_by = bound(n_bytes, 2 * valid * c, 'fp32')
+    bound_ms, bound_by, n_bytes = k4_bound(ctx, dp, ranks, rays, ncells)
+    rows = K1.atomic_rows_per_landed_point(ranks, ncells, K4.TILE)
+    ptxas = ' | '.join(ptxas_summary(K4.build()['log']))
     say(f'[K4] lift_splat F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16, invalid share '
         f'{1 - valid / (f * p):.4f}: max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) '
-        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-        f'{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); from the encoder outputs: '
-        f'softmax + K4 {fused_ms:.3f} ms, lift + K1 (materialised) {materialised_ms:.3f} ms; '
-        f'no single PyTorch call computes this function')
+        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.4f} ms (zeroing the fp32 sums, the kernel, '
+        f'the cast to bf16; {call_ms:.4f} ms a call with the host\'s issue time, {cold:.4f} ms '
+        f'with the L2 evicted), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
+        f'{n_bytes / 1e6:.1f} MB), bound_share {bound_ms / ms:.3f}; atomic rows per landed '
+        f'point {rows:.4f} (tile {K4.TILE}); from the encoder outputs: softmax + K4 '
+        f'{fused_ms:.4f} ms, lift + K1 (materialised) {materialised_ms:.4f} ms; no single '
+        f'PyTorch call computes this function; ptxas: {ptxas}')
     if not ok:
         fail('K4 disagrees with its plain version')
 
-    g = torch.randn(f, ncells, c, generator=gen, device=device)
+    g = torch.randn(f, ncells, c, generator=torch.Generator(device=device).manual_seed(SEED + 1),
+                    device=device)
     grads = []
     for fn in (K4.lift_splat_frames, K4.lift_splat_plain):
         a = ctx.float().requires_grad_(True)
@@ -707,8 +764,9 @@ def phase_k4(cfg, device):
         f'{errs[1]:.3e}')
     return dict(shape=f'F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16',
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, materialised_ms=materialised_ms,
-                fused_path_ms=fused_ms)
+                bound_by=bound_by, library_ms=None, bound_share=bound_ms / ms, call_ms=call_ms,
+                cold_ms=cold, atomic_rows_per_landed_point=rows,
+                materialised_ms=materialised_ms, fused_path_ms=fused_ms)
 
 
 def to_torch(arrays, device, dtype=None):
@@ -847,15 +905,106 @@ def phase_flagship(cfg, device, card, fused: bool = False):
         if '--profile' in sys.argv[1:]:
             profile_window(lambda i: step(), f'{tag} forward+plan', card)
         if fused:
-            # against the materialised path of the same weights, in turns
-            p50s = {False: [], True: []}
-            for turn in (False, True, True, False):
-                model.cfg = dataclasses.replace(model.cfg, fused_lift_splat=turn)
-                p50s[turn].append(time_ms(step, warmup=3, iters=20))
-            say(f'{tag} in turns (materialised, fused, fused, materialised; p50 of 20 steps '
-                f'each): materialised {" / ".join(f"{t:.2f}" for t in p50s[False])} ms, fused '
-                f'{" / ".join(f"{t:.2f}" for t in p50s[True])} ms, on {card}')
+            fused_vs_materialised(model, step, card)
     return launches
+
+
+TURNS = (False, True, True, False, False, True, True, False)   # fused_lift_splat, in turns
+
+
+def fused_vs_materialised(model, step, card) -> None:
+    """[fused turns]: the serving step with the fused and the materialised
+    splat of the same weights, in ``TURNS`` (4 turns each, alternating),
+    p50 of 20 steps a turn. With --profile also, per turn: the host's time
+    to issue a step (from a drained device: the call's own time, then the
+    wait for the device), the card's SM clock and power while the p50 ran,
+    and a torch.profiler window of 3 steps (device events and time a step,
+    the device's busy share and largest idle gaps); then per variant the
+    kernels that take the most and the host ops whose time a step differs
+    most between the two."""
+    import torch
+    profiling = '--profile' in sys.argv[1:]
+    names = {False: 'materialised', True: 'fused'}
+    p50s = {False: [], True: []}
+    windows = {False: [], True: []}
+    for turn in TURNS:
+        model.cfg = dataclasses.replace(model.cfg, fused_lift_splat=turn)
+        if not profiling:
+            p50s[turn].append(time_ms(step, warmup=3, iters=20))
+            continue
+        sampler = smi_sampler()
+        try:
+            p50s[turn].append(time_ms(step, warmup=3, iters=20))
+        finally:
+            clock, power = smi_stop(sampler)
+        issue, tail = [], []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            issue.append((t1 - t0) * 1e3)
+            tail.append((time.perf_counter() - t1) * 1e3)
+        window = profile_steps(lambda i: step())
+        windows[turn].append(window)
+        say(f'[fused turns] {names[turn]}: p50 {p50s[turn][-1]:.2f} ms; host issue p50 '
+            f'{np.median(issue):.2f} ms, then the device {np.median(tail):.2f} ms; SM clock '
+            f'{clock} MHz, power {power} W (medians while the p50 ran); profiled: '
+            f'{window["events"]:.0f} device events, {window["busy_ms"]:.2f} ms device time and '
+            f'{window["wall_ms"]:.2f} ms wall a step (busy '
+            f'{window["busy_ms"] / window["wall_ms"]:.3f}), '
+            f'largest idle gaps {", ".join(f"{g:.2f}" for g in window["gaps"])} ms')
+    say(f'[fused turns] in turns ({", ".join(names[t] for t in TURNS)}; p50 of 20 steps each): '
+        f'materialised {" / ".join(f"{t:.2f}" for t in p50s[False])} ms (median '
+        f'{np.median(p50s[False]):.2f}), fused {" / ".join(f"{t:.2f}" for t in p50s[True])} ms '
+        f'(median {np.median(p50s[True]):.2f}), on {card}')
+    if not profiling:
+        return
+    per_step = {}
+    for turn in (False, True):
+        kernels, host = {}, {}
+        for w in windows[turn]:
+            for table, part in ((kernels, w['kernels']), (host, w['host'])):
+                for name, (ms, k) in part.items():
+                    t, n = table.get(name, (0.0, 0.0))
+                    table[name] = (t + ms / len(windows[turn]), n + k / len(windows[turn]))
+        per_step[turn] = host
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        say(f'[fused turns] {names[turn]}, device kernels a step (mean of the turns): '
+            + '; '.join(f'{ms:.3f} ms x{k:.0f} {name[:70]}' for name, (ms, k) in top))
+    ops = set(per_step[False]) | set(per_step[True])
+
+    def diff(name):
+        return per_step[True].get(name, (0.0, 0))[0] - per_step[False].get(name, (0.0, 0))[0]
+
+    say('[fused turns] host ops whose self time a step differs most (fused - materialised; '
+        'ms a step, calls a step): ' + '; '.join(
+            f'{name[:50]} {diff(name):+.3f} ms ({per_step[False].get(name, (0, 0))[1]:.0f} -> '
+            f'{per_step[True].get(name, (0, 0))[1]:.0f} calls)'
+            for name in sorted(ops, key=lambda n: -abs(diff(n)))[:12]))
+
+
+def smi_sampler():
+    """nvidia-smi sampling the SM clock and power draw every 100 ms."""
+    return subprocess.Popen(['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+                             '--format=csv,noheader,nounits', '-lms', '100'],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def smi_stop(proc):
+    """Stop an ``smi_sampler``; (median SM clock, median power) of its samples."""
+    proc.terminate()
+    out, _ = proc.communicate(timeout=30)
+    rows = [line.split(',') for line in out.splitlines() if line.count(',') == 1]
+    try:
+        vals = np.array([[float(a), float(b)] for a, b in rows])
+    except ValueError:
+        return 'unread', 'unread'
+    if not len(vals):
+        return 'unread', 'unread'
+    clock, power = np.median(vals, 0)
+    return f'{clock:.0f}', f'{power:.1f}'
 
 
 def phase_fused(cfg, device, card):
@@ -1070,10 +1219,11 @@ def phase_agent(device, card):
     return k1, per_tick
 
 
-def profile_window(run, what: str, card, n: int = 3, top: int = 6) -> None:
-    """Where the time of ``n`` calls of ``run(i)`` goes (--profile):
-    torch.profiler's device events and summed device time per call beside
-    the wall time per call, and the kernels that take the most."""
+def profile_steps(run, n: int = 3, n_gaps: int = 3) -> dict:
+    """torch.profiler over ``n`` calls of ``run(i)``, a call at a time:
+    wall time, device events and summed device time, the device's
+    ``n_gaps`` largest idle gaps (ms), and by name the device kernels' and
+    the host ops' self time (ms) and counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1083,17 +1233,34 @@ def profile_window(run, what: str, card, n: int = 3, top: int = 6) -> None:
             run(i)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    gaps, end = [], None
+    for e in kernels:
+        if end is not None and e.time_range.start > end:
+            gaps.append((e.time_range.start - end) / 1e3)
+        end = e.time_range.end if end is None else max(end, e.time_range.end)
     by_name = {}
     for e in kernels:
         t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / n, k + 1)
-    say(f'[profile] {what}: {n} under torch.profiler, {wall:.2f} ms of wall time, '
-        f'{len(kernels) / n:.0f} device events and {busy:.2f} ms of summed device time each '
-        f'(device busy {busy / wall:.2f} of the wall time); on {card}')
-    for name, (ms, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        say(f'[profile]   {ms:8.2f} ms each {k / n:6.0f} calls each  {name[:110]}')
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / n, k + 1 / n)
+    host = {a.key: (a.self_cpu_time_total / 1e3 / n, a.count / n) for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CPU}
+    return dict(wall_ms=wall, events=len(kernels) / n,
+                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n,
+                gaps=sorted(gaps, reverse=True)[:n_gaps], kernels=by_name, host=host)
+
+
+def profile_window(run, what: str, card, n: int = 3, top: int = 6) -> None:
+    """Where the time of ``n`` calls of ``run(i)`` goes (--profile):
+    torch.profiler's device events and summed device time per call beside
+    the wall time per call, and the kernels that take the most."""
+    w = profile_steps(run, n)
+    say(f'[profile] {what}: {n} under torch.profiler, {w["wall_ms"]:.2f} ms of wall time, '
+        f'{w["events"]:.0f} device events and {w["busy_ms"]:.2f} ms of summed device time each '
+        f'(device busy {w["busy_ms"] / w["wall_ms"]:.2f} of the wall time); on {card}')
+    for name, (ms, k) in sorted(w['kernels'].items(), key=lambda kv: -kv[1][0])[:top]:
+        say(f'[profile]   {ms:8.2f} ms each {k:6.0f} calls each  {name[:110]}')
 
 
 def profile_ticks(core, mode: str, card, ticks: int = 3):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1 (the BEV splat) and K2 (the fused ConvNeXt MLP) of one checkout of
-the port, timed three ways on one NVIDIA GPU.
+"""K1 (the BEV splat), K2 (the fused ConvNeXt MLP) and K4 (the fused lift +
+splat) of one checkout of the port, timed three ways on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_ab.py [--tree DIR] [--label NAME]
 
@@ -17,8 +17,10 @@ repository's chip_smoke.py: K1 (``bev_splat``: zeroing the fp32 sums,
 the kernel, the cast to bf16) at the flagship's serving splat (F=3,
 the rig's pre-warped ranks) and at the CARLA agent's single-frame splat
 (F=1), bf16 rows; K2 (``convnext_mlp``) at the flagship's two serving
-row counts (N=240,000 and 360,000), bf16. Each is checked against its
-plain version and timed:
+row counts (N=240,000 and 360,000), bf16; K4 (``lift_splat_frames``:
+zeroing the fp32 sums, the kernel, the cast to bf16) at the flagship's
+fused splat (F=3, bf16 context and depth probabilities, the rig's
+pre-warped ranks). Each is checked against its plain version and timed:
 
   call   one wrapper call between two CUDA events, the host's time to
          issue it included (chip_smoke.time_ms, median of 20);
@@ -30,7 +32,9 @@ plain version and timed:
 
 Each line gives the share of the bound (bound / time) under each timing,
 the card's name and power limit, and what the compiler reported for the
-kernels (ptxas for a CUDA kernel, Triton's metadata for a Triton one).
+kernels (ptxas for a CUDA kernel, Triton's metadata for a Triton one);
+K4's line also its atomic rows per landed point (1 for a kernel with no
+tile, which adds each landed point's row with atomics of its own).
 The last line is one JSON object with every number. Exits non-zero
 without a card or when a kernel disagrees with its plain version.
 """
@@ -57,8 +61,7 @@ def load_chip_smoke():
 
 
 def timings(cs, fn, flush) -> dict:
-    cold = cs.device_ms(lambda: (flush.zero_(), fn())) - cs.device_ms(flush.zero_)
-    return {'call': cs.time_ms(fn), 'graph': cs.device_ms(fn), 'cold': cold}
+    return {'call': cs.time_ms(fn), 'graph': cs.device_ms(fn), 'cold': cs.cold_ms(fn, flush)}
 
 
 def shares(bound_ms: float, ms: dict) -> str:
@@ -115,13 +118,37 @@ def k2_numbers(cs, device, n: int, flush, label: str) -> dict:
     return dict(ms, bound_ms=bound_ms, max_abs_err=err)
 
 
+def k4_numbers(cs, cfg, device, flush, what: str) -> dict:
+    import torch
+    from stp3_tpu_torch.ops.kernels import bev_splat as K1
+    from stp3_tpu_torch.ops.kernels import lift_splat as K4
+    feat, logits, ranks, rays, ncells = cs.k4_inputs(cfg, device)
+    f, c = ranks.shape[0], feat.shape[-1]
+    ctx, dp = feat.reshape(f, -1, c), cs.depth_probs(logits)
+    got = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    want = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        sys.exit(f'K4 disagrees with its plain version at {what}: max_abs_err {err:.3e}')
+    bound_ms, _, _ = cs.k4_bound(ctx, dp, ranks, rays, ncells)
+    tile = getattr(K4, 'TILE', None)
+    rows = K1.atomic_rows_per_landed_point(ranks, ncells, tile) if tile else 1.0
+    ms = timings(cs, lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells), flush)
+    print(f'[K4 {what}] F={f} R={ctx.shape[1]} P={ranks.shape[1]} C={c} ncells={ncells} bf16: '
+          f'max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) OK; atomic rows per landed point '
+          f'{rows:.4f} (tile {tile}); bound {bound_ms:.4f} ms; {shares(bound_ms, ms)}', flush=True)
+    return dict(ms, bound_ms=bound_ms, max_abs_err=err, atomic_rows_per_landed_point=rows)
+
+
 def compiler_report(cs, device) -> dict:
     """ptxas's registers, shared memory and spills for a CUDA kernel;
     Triton's for K2 where the tree's K2 is a Triton kernel."""
     import torch
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
     from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
-    out = {'K1': cs.ptxas_summary(K1.build()['log'])}
+    from stp3_tpu_torch.ops.kernels import lift_splat as K4
+    out = {'K1': cs.ptxas_summary(K1.build()['log']),
+           'K4': cs.ptxas_summary(K4.build()['log'])}
     if hasattr(K2, 'build'):
         out['K2'] = cs.ptxas_summary(K2.build()['log'])
     else:
@@ -178,6 +205,7 @@ def main() -> None:
                                      f'{args.label} agent F=1')
     for n in (240000, 360000):
         numbers[f'k2_{n}'] = k2_numbers(cs, device, n, flush, f'{args.label} serving')
+    numbers['k4_fused'] = k4_numbers(cs, cfg, device, flush, f'{args.label} fused F=3')
     print(json.dumps(numbers), flush=True)
 
 

@@ -28,11 +28,12 @@
 // more points a run: PERF.md), sorts
 // its (rank, point) pairs by the rank's significant bits
 // (cub::BlockRadixSort; a dropped point sorts last under the key ncells),
-// flags the heads of equal-rank runs and numbers them with a block scan.
-// Runs are summed in registers, each row read once. Where a row is whole
-// 16-byte vectors (C = 64 in bf16: 8 vectors, one coalesced 128-byte
-// read), a group of lanes reads one row a step and takes a run of its own,
-// so a warp sums four runs at once, each with up to four rows in flight
+// flags the heads of equal-rank runs and numbers them with a block scan
+// (tile_runs.cuh, which K4 shares). Runs are summed in registers, each
+// row read once. Where a row is whole 16-byte vectors (C = 64 in bf16: 8
+// vectors, one coalesced 128-byte read), a group of lanes reads one row a
+// step and takes a run of its own, so a warp sums four runs at once, each
+// with up to four rows in flight
 // (the run phase, not the sort, is what takes the time: a warp that takes
 // one run at a time waits a memory round trip per run); then the group
 // adds its run's row with two red.global.add.v4.f32 a lane (vector atomics
@@ -47,26 +48,18 @@
 // run, so the result is nondeterministic in the last bits; compare it
 // with a tolerance.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <cub/block/block_radix_sort.cuh>
-#include <cub/block/block_scan.cuh>
+#include "tile_runs.cuh"
 
 namespace {
 
+using tile_runs::red_add_v4;
+using tile_runs::to_f32;
+
 constexpr int kSplatThreads = 256;
 constexpr int kItems = 4;                       // ranks a thread sorts
-constexpr int kTile = kSplatThreads * kItems;   // T = 1,024 points a block
+using Runs = tile_runs::TileRuns<kSplatThreads, kItems>;
+constexpr int kTile = Runs::kTile;              // T = 1,024 points a block
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-// a vector atomic add to global memory (compute capability 9.x) that
-// returns nothing, so that no thread waits for the old value
-__device__ __forceinline__ void red_add_v4(float* dst, float a, float b, float c, float d) {
-  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "l"(dst), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
-}
 __device__ __forceinline__ void add_vec(float (&sum)[4], uint4 q) {
   sum[0] += __uint_as_float(q.x);
   sum[1] += __uint_as_float(q.y);
@@ -88,16 +81,8 @@ __global__ void __launch_bounds__(kSplatThreads)
 splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks,
                   float* __restrict__ acc, int64_t n_points, int channels, int ncells,
                   int key_bits, int lanes_per_row) {
-  using Sort = cub::BlockRadixSort<uint32_t, kSplatThreads, kItems, uint16_t>;
-  using Scan = cub::BlockScan<int, kSplatThreads>;
-  __shared__ union {
-    typename Sort::TempStorage sort;
-    int run_key[kTile];                 // written once the sort is done
-  } u;
-  __shared__ typename Scan::TempStorage scan;
+  __shared__ Runs::Storage runs;
   __shared__ uint16_t point[kTile];     // sorted: each item's point within the tile
-  __shared__ uint16_t run_start[kTile + 1];
-  __shared__ uint32_t last_key[kSplatThreads];
 
   const int tid = threadIdx.x;
   const int64_t frame = blockIdx.y;
@@ -121,34 +106,11 @@ splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks
   }
   if (!__syncthreads_or(landing)) return;
 
-  Sort(u.sort).Sort(keys, pts, 0, key_bits);    // blocked: item j is tid * kItems + j
+  Runs::sort(runs, keys, pts, key_bits);
 #pragma unroll
   for (int j = 0; j < kItems; ++j) point[tid * kItems + j] = pts[j];
-  last_key[tid] = keys[kItems - 1];
   __syncthreads();
-
-  // run heads, numbered by an exclusive scan of their counts
-  uint32_t prev = tid > 0 ? last_key[tid - 1] : ~0u;
-  int heads = 0;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    heads += keys[j] != prev;
-    prev = keys[j];
-  }
-  int run, n_runs;
-  Scan(scan).ExclusiveSum(heads, run, n_runs);
-  prev = tid > 0 ? last_key[tid - 1] : ~0u;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    if (keys[j] != prev) {
-      run_start[run] = (uint16_t)(tid * kItems + j);
-      u.run_key[run] = (int)keys[j];
-      ++run;
-    }
-    prev = keys[j];
-  }
-  if (tid == 0) run_start[n_runs] = (uint16_t)kTile;
-  __syncthreads();
+  const int n_runs = Runs::number_runs(runs, keys);
 
   // the last run (key ncells) is the dropped points
   const int lane = tid & 31;
@@ -164,9 +126,9 @@ splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks
     const int groups = 32 / lanes_per_row, row_vecs = channels / kV;
     for (int r = (tid >> 5) * groups + group; r < n_runs;
          r += (kSplatThreads / 32) * groups) {
-      const int key = u.run_key[r];
+      const int key = runs.u.run_key[r];
       if (key >= ncells) continue;
-      const int begin = run_start[r], end = run_start[r + 1];
+      const int begin = runs.run_start[r], end = runs.run_start[r + 1];
       float* dst = f_acc + (int64_t)key * channels;
       for (int v = sub; v < row_vecs; v += lanes_per_row) {
         float sum[kV];
@@ -187,9 +149,9 @@ splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks
   }
   // other rows: warps take whole runs, lanes on channels, scalar atomics
   for (int r = tid >> 5; r < n_runs; r += kSplatThreads / 32) {
-    const int key = u.run_key[r];
+    const int key = runs.u.run_key[r];
     if (key >= ncells) continue;                  // warp-uniform
-    const int begin = run_start[r], end = run_start[r + 1];
+    const int begin = runs.run_start[r], end = runs.run_start[r + 1];
     float* dst = f_acc + (int64_t)key * channels;
     for (int c = lane; c < channels; c += 32) {
       float sum = 0.0f;
@@ -205,16 +167,9 @@ splat_tile_kernel(const T* __restrict__ feats, const int32_t* __restrict__ ranks
 template <typename T>
 cudaError_t launch(const void* feats, const int32_t* ranks, float* acc, int n_frames,
                    int64_t n_points, int channels, int ncells, cudaStream_t stream) {
-  int key_bits = 1;
-  while (key_bits < 31 && ((int64_t)1 << key_bits) <= ncells) ++key_bits;   // holds ncells
-  // 16-byte vectors when a row is whole vectors and both bases are aligned:
-  // lanes a row, the row's vectors rounded up to a power of two, at most 32
-  int lanes_per_row = 0;
-  const int row_bytes = channels * (int)sizeof(T);
-  if (row_bytes % 16 == 0 && (((uintptr_t)feats | (uintptr_t)acc) & 15) == 0) {
-    lanes_per_row = 1;
-    while (lanes_per_row < 32 && lanes_per_row * 16 < row_bytes) lanes_per_row <<= 1;
-  }
+  const int key_bits = tile_runs::key_bits(ncells);
+  const int lanes_per_row = tile_runs::lanes_per_row(channels * (int)sizeof(T),
+                                                     (uintptr_t)feats | (uintptr_t)acc);
   const int64_t tiles = (n_points + kTile - 1) / kTile;
   if (tiles > INT32_MAX) return cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, (unsigned)n_frames);

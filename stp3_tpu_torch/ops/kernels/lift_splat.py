@@ -11,7 +11,12 @@ frame's function is the JAX one, and all frames are one launch.
 
 The kernel is ``csrc/lift_splat.cu`` (its comments say what bounds it and
 why it is built the way it is); this module builds it with nvcc at first
-use, binds it with ctypes and checks the arguments. ``LiftSplat`` is a
+use, binds it with ctypes and checks the arguments. Like K1 it sorts each
+tile of ``TILE`` consecutive points of a frame by rank, sums each run of
+equal ranks in registers (each row dp x ctx[ray] formed there) and adds
+it with one vector atomic per 4 channels, so it makes
+``bev_splat.atomic_rows_per_landed_point(ranks, ncells, TILE)`` atomic
+rows per landed point. ``LiftSplat`` is a
 ``torch.autograd.Function`` whose forward is K4 and whose backward is the
 JAX package's ``_ls_bwd`` (plain XLA there, plain PyTorch here): the
 cotangent rows g[rank] (K3, ``gather_rows``, on CUDA), d ctx summed over
@@ -33,6 +38,8 @@ from stp3_tpu_torch.ops.kernels.nvcc_build import load_library
 
 _LIB = {}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K4's points per block, kTile in csrc/lift_splat.cu
+TILE = 1024
 
 
 def build() -> dict:

@@ -2,8 +2,9 @@
 ctypes (plain C interface; no PyTorch headers, so a build takes seconds).
 
 The library lands in ``build/kernels/`` at the repository root, named by
-a hash of the sources and flags: an edited ``.cu`` builds anew, an
-unchanged one is loaded from the previous build.
+a hash of the sources, the headers under ``csrc/`` and the flags: an
+edited ``.cu`` or ``.cuh`` builds anew, an unchanged source is loaded from
+the previous build.
 """
 from __future__ import annotations
 
@@ -41,16 +42,19 @@ def load_library(name: str, sources: Sequence[str]) -> Tuple[ctypes.CDLL, dict]:
     """Build (if needed) and load ``sources`` (file names under csrc/).
 
     Returns (library, info); info holds 'path', 'built' (False when an
-    earlier build was reused), 'seconds' and nvcc's '-Xptxas -v' 'log'.
+    earlier build was reused), 'seconds' and nvcc's '-Xptxas -v' 'log'
+    (kept beside the library, so a reused build reports it too).
     """
     if name in _LOADED:
         return _LOADED[name]
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob('*.cuh')):       # the headers they may include
         digest.update(p.read_bytes())
     lib_path = BUILD_DIR / f'lib{name}_{digest.hexdigest()[:16]}.so'
-    info = {'path': str(lib_path), 'built': False, 'seconds': 0.0, 'log': ''}
+    log_path = lib_path.with_suffix('.log')
+    info = {'path': str(lib_path), 'built': False, 'seconds': 0.0,
+            'log': log_path.read_text() if log_path.exists() else ''}
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
@@ -64,6 +68,7 @@ def load_library(name: str, sources: Sequence[str]) -> Tuple[ctypes.CDLL, dict]:
             os.unlink(tmp)
             raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
                                f'{" ".join(cmd)}\n{info["log"]}')
+        log_path.write_text(info['log'])
         os.replace(tmp, lib_path)      # atomic: no half-written library
         info['built'] = True
     lib = ctypes.CDLL(str(lib_path))

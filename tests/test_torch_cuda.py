@@ -212,6 +212,41 @@ def test_lift_splat_kernel_matches_plain(cuda, dtypes, c):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('dtypes', [(torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float32, torch.float32)])
+@pytest.mark.parametrize('case', ['one_rank', 'all_invalid', 'ragged'])
+@pytest.mark.parametrize('c', [3, 16, 64])
+def test_lift_splat_kernel_edge_cases_match_plain(cuda, dtypes, case, c):
+    """K4's tile sort at its edges, as K1's: every point on one rank (one
+    run a tile: maximum contention), every point dropped, and P = 2 x 4096
+    + 77 (a ragged last tile of 77 points), over both row paths: 16-byte
+    vectors (C = 16, 64) and scalars (C = 3); every 97th point reads the
+    table's last row (ray id R - 1). Ranks stay in [0, ncells] and ray ids
+    in [0, R), the plain version's domain."""
+    ctx_dt, dp_dt = dtypes
+    gen = torch.Generator().manual_seed(c)
+    f, r, p, ncells = 2, 37, 2 * 4096 + 77, 97
+    ctx = torch.randn(f, r, c, generator=gen).to(cuda, ctx_dt)
+    dp = torch.rand(f, p, generator=gen).to(cuda, dp_dt)
+    ranks = {'one_rank': torch.full((f, p), 5, dtype=torch.int32),
+             'all_invalid': torch.full((f, p), ncells, dtype=torch.int32),
+             'ragged': torch.randint(0, ncells + 1, (f, p), generator=gen, dtype=torch.int32),
+             }[case].to(cuda)
+    rays = torch.randint(0, r, (p,), generator=gen, dtype=torch.int32)
+    rays[::97] = r - 1
+    rays = rays.to(cuda)
+    n = K4.lift_splat_accumulate.launches
+    got = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    assert K4.lift_splat_accumulate.launches == n + 1
+    want = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
+    torch.cuda.synchronize()
+    # fp32 sums on both sides, in another order (runs of up to 1,024 rows)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    if case == 'all_invalid':
+        assert not got.any()
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_lift_splat_backward_matches_plain_autograd(cuda, dtype):
     """LiftSplat (K4 forward; _ls_bwd's backward with K3's row gather)

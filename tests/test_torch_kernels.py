@@ -107,6 +107,47 @@ def test_atomic_rows_per_landed_point_on_the_flagship_rig():
     assert abs((heads & lands).sum().item() / lands.sum().item() - 0.909) <= 0.005
 
 
+def test_lift_splat_fold_rate_on_the_flagship_rig(monkeypatch):
+    """K4's premise: at the flagship rig, project_lift_splat_fused hands K4
+    the pre-warped ranks in the order project_to_birds_eye_view hands them
+    to K1, with lift_ray_ids for the rays, so a tile of K4.TILE = 1,024
+    consecutive points (kThreads x kItems in csrc/lift_splat.cu) holds at
+    most 0.1 distinct ranks per landed point (0.093): one run, one vector
+    atomic per 4 channels, per ~11 landed points."""
+    import chip_smoke
+    from stp3_tpu_torch.ops import bev_pool
+    geometry, ego, (res, start, dim) = chip_smoke.rig_geometry(chip_smoke.flagship_cfg(), 'cpu')
+    b, s, n, d, hf, wf, _ = geometry.shape
+    seen = {}
+
+    def k4(ctx, dp, ranks, rays, ncells):
+        seen['K4'] = ranks, rays, tuple(dp.shape), ncells
+        return ctx.new_zeros(ranks.shape[0], ncells, ctx.shape[-1])
+
+    def k1(feats, ranks, ncells):
+        seen['K1'] = ranks, tuple(feats.shape[:2])
+        return feats.new_zeros(ranks.shape[0], ncells, feats.shape[-1])
+
+    monkeypatch.setattr(bev_pool, 'lift_splat_frames', k4)
+    monkeypatch.setattr(bev_pool, 'bev_splat', k1)
+    # one channel: the ranks and the point order do not depend on C
+    bev_pool.project_lift_splat_fused(torch.zeros(b, s, n, hf, wf, 1),
+                                      torch.zeros(b, s, n, hf, wf, d), geometry, ego, res,
+                                      start, dim)
+    bev_pool.project_to_birds_eye_view(torch.zeros(b, s, n, d, hf, wf, 1), geometry, ego, res,
+                                       start, dim)
+    ranks, rays, dp_shape, ncells = seen['K4']
+    assert tuple(ranks.shape) == dp_shape == seen['K1'][1] == (3, 483840) and ncells == 40000
+    assert torch.equal(ranks, seen['K1'][0])
+    assert torch.equal(rays, bev_pool.lift_ray_ids(n, d, hf, wf))
+    src = (Path(K4.__file__).parents[2] / 'csrc' / 'lift_splat.cu').read_text()
+    threads, items = (int(re.search(rf'constexpr int {name} = (\d+);', src).group(1))
+                      for name in ('kThreads', 'kItems'))
+    assert threads * items == K4.TILE == 1024
+    rate = K1.atomic_rows_per_landed_point(ranks, ncells, K4.TILE)
+    assert rate <= 0.1 and abs(rate - 0.093) <= 0.005
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 def test_gather_rows_plain_matches_pallas_bit_for_bit(dtype):
     """K3's plain version against the JAX VJP's row gather (_bwd_v2b with
@@ -300,6 +341,34 @@ def test_convnext_mlp_gradients_match_jax_vjp(dtype):
         assert t.grad.dtype == t.dtype, name
         got, w = t.grad.double().numpy(), np.asarray(w, np.float64)
         assert np.linalg.norm(got - w) / np.linalg.norm(w) < tol, name
+
+
+def test_nvcc_build_rebuilds_on_an_edited_header_and_keeps_the_log(tmp_path, monkeypatch):
+    """load_library keys a build on the sources and the csrc/ headers (K1
+    and K4 include tile_runs.cuh), and a reused build reports nvcc's ptxas
+    log too. A stand-in nvcc copies a shared library that exists and prints
+    one ptxas line."""
+    from stp3_tpu_torch.ops.kernels import nvcc_build as NB
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    (csrc / 'k.cu').write_text('#include "h.cuh"\n')
+    (csrc / 'h.cuh').write_text('// one\n')
+    real = Path(torch.__file__).parent / 'lib' / 'libtorch_global_deps.so'
+    nvcc = tmp_path / 'nvcc'
+    nvcc.write_text(f'#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\ncp {real} "$2"\n'
+                    f'echo "ptxas info    : Used 8 registers, 16 bytes smem"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(NB, 'CSRC', csrc)
+    monkeypatch.setattr(NB, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(NB, '_nvcc', lambda: str(nvcc))
+    infos = []
+    for header in ('// one\n', '// one\n', '// two\n'):
+        (csrc / 'h.cuh').write_text(header)
+        monkeypatch.setattr(NB, '_LOADED', {})
+        infos.append(NB.load_library('k', ['k.cu'])[1])
+    assert [i['built'] for i in infos] == [True, False, True]
+    assert infos[0]['path'] == infos[1]['path'] != infos[2]['path']
+    assert all('Used 8 registers' in i['log'] for i in infos)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
