@@ -56,7 +56,25 @@ Phases, each printing one line (or a few) before the last:
      300x400 frames, GPS 2 m further each tick): controls in range, static
      vs dynamic single-frame splat, incremental vs full heads at zero
      ego-motion; each mode's plan_step p50 over 20 ticks, launches per
-     tick and peak memory.
+     tick and peak memory;
+ 13. the stage train steps, each at full width from a seeded init on
+     synthetic batches under its YAML's bf16 policy and REMAT 'encoder'
+     (configured as code: PERCEPTION_STAGE, CARLA_PERCEPTION,
+     PREDICTION_BER), timed like phase 10, launches, loss terms finite,
+     parameters changed, p50, spread, samples/s, peak memory (K1 and K3
+     at each stage's splat shape and K2 at Prediction_Ber's rows are held
+     against their plain versions with the kernel phases above):
+     [perception] nuScenes Perception at batch 3 (K1 and K3 once, K2
+     never); [perception carla] CARLA Perception at batch 6 (6 timed
+     steps); [prediction_ber] Prediction_Ber at batch 2 (K1, K3 once, K2
+     twice);
+ 14. [perception bn]: Perception under MODEL.NORM 'bn' (BN_MOMENTUM 0.05):
+     one step of one seeded init and batch, dropout off, under REMAT
+     'encoder' and 'none' must leave the same running statistics (a
+     second update in the recomputation would not); then the step's p50
+     and peak memory, and an eval forward on the running statistics;
+ 15. [bn_frozen]: the flagship forward + plan under MODEL.NORM
+     'bn_frozen', bf16: launches and p50 of 20 steps.
 With --profile, torch.profiler windows of 3 calls (device events, summed
 device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
@@ -143,6 +161,51 @@ CARLA_PLANNING = {
 }
 
 
+# stp3_tpu/configs/nuscenes/Perception.yml, as code: stage 1 (no future
+# prediction, no present distribution, no planner)
+PERCEPTION_STAGE = {
+    'TAG': 'Perception', 'BATCHSIZE': 3, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
+    'DATASET': {'VERSION': 'trainval'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 0,
+    'LIFT': {'GT_DEPTH': False},
+    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
+              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
+              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
+    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': True}, 'HDMAP': {'ENABLED': True}},
+    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
+    'PROBABILISTIC': {'ENABLED': False}, 'PLANNING': {'ENABLED': False},
+    'OPTIMIZER': {'LR': 1e-3},
+}
+# stp3_tpu/configs/carla/Perception.yml, as code: 4 cameras at 256x256,
+# a +-20 m BEV grid at 0.2 m
+CARLA_PERCEPTION = {
+    **PERCEPTION_STAGE, 'TAG': 'CARLA_perception', 'BATCHSIZE': 6, 'DATASET': {'NAME': 'carla'},
+    'IMAGE': {'FINAL_DIM': (256, 256), 'NAMES': ['front', 'left', 'right', 'rear'],
+              'ORIGINAL_HEIGHT': 300, 'ORIGINAL_WIDTH': 400},
+    'LIFT': {'X_BOUND': [-20.0, 20.0, 0.2], 'Y_BOUND': [-20.0, 20.0, 0.2], 'GT_DEPTH': False},
+}
+# stp3_tpu/configs/nuscenes/Prediction_Ber.yml, as code: stage 2 with a
+# Bernoulli spatial latent
+PREDICTION_BER = {
+    'TAG': 'Prediction_Ber', 'BATCHSIZE': 2, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
+    'DATASET': {'VERSION': 'trainval'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 4,
+    'LIFT': {'GT_DEPTH': False},
+    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
+              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
+              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
+    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': False}, 'HDMAP': {'ENABLED': False}},
+    'INSTANCE_FLOW': {'ENABLED': True},
+    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'BERNOULLI'},
+    'PLANNING': {'ENABLED': False}, 'FUTURE_DISCOUNT': 0.95, 'OPTIMIZER': {'LR': 2e-4},
+    'PRETRAINED': {'LOAD_WEIGHTS': True},
+}
+# the tiny widths over a stage's own depth (its receptive field, future
+# frames and switches), fp32
+TINY_WIDTHS = {k: v for k, v in TINY.items()
+               if k not in ('TIME_RECEPTIVE_FIELD', 'N_FUTURE_FRAMES')}
+STAGES = {'perception': PERCEPTION_STAGE, 'carla_perception': CARLA_PERCEPTION,
+          'prediction_ber': PREDICTION_BER}
+
+
 def make_cfg(*overrides):
     """The port's default config with the nested overrides merged in order."""
     from stp3_tpu_torch.config import CfgNode, get_cfg
@@ -166,6 +229,17 @@ def carla_planning_cfg():
     return make_cfg(CARLA_PLANNING)
 
 
+def stage_cfg(stage: str, tiny: bool = False, *overrides):
+    """The training config of a stage of ``STAGES``, then ``overrides``;
+    ``tiny``: at TINY's widths in fp32 (CARLA's four cameras kept, at
+    32x32)."""
+    if not tiny:
+        return make_cfg(STAGES[stage], *overrides)
+    cams = ({'IMAGE': {'FINAL_DIM': (32, 32), 'NAMES': CARLA_PERCEPTION['IMAGE']['NAMES']}}
+            if stage == 'carla_perception' else {})
+    return make_cfg(STAGES[stage], TINY_WIDTHS, cams, {'PRECISION': 32}, *overrides)
+
+
 # the kernels: name, route, source, the TPU kernel each replaces, and the
 # path whose numbers stand at the top level of the kernels line
 KERNELS = (
@@ -182,7 +256,8 @@ KERNELS = (
     ('lift_splat', 'cuda', 'stp3_tpu_torch/csrc/lift_splat.cu',
      'stp3_tpu/ops/pallas/bev_pool_kernel.py:418', 'fused'),
 )
-PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent')
+PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
+         'perception_bn', 'prediction_ber', 'bn_frozen')
 
 
 def counters():
@@ -496,10 +571,10 @@ def phase_k2(cfg, device, path: str, b: int = 1):
                 per_shape=per_shape)
 
 
-def phase_k3(cfg, device):
-    """K3 at the training shape: the splat's cotangent (F, ncells, C) and
-    the ranks of the flagship rig at batch B = cfg.BATCHSIZE; returns its
-    numbers for the train path."""
+def phase_k3(cfg, device, path: str = 'train'):
+    """K3 at a training shape: the splat's cotangent (F, ncells, C) and the
+    ranks of the config's rig at batch B = cfg.BATCHSIZE; returns its
+    numbers for ``path``."""
     import torch
     from stp3_tpu_torch.ops.kernels import bev_splat as K
     ranks, ncells = splat_ranks(cfg, device, b=int(cfg.BATCHSIZE))
@@ -528,7 +603,7 @@ def phase_k3(cfg, device):
     referenced = sum(torch.unique(r[(r >= 0) & (r < ncells)]).numel() for r in ranks)
     n_bytes = (referenced * c + f * p * c) * table.element_size() + nbytes(ranks)
     bound_ms, bound_by = bound(n_bytes, 0, 'bf16')
-    say(f'[K3 train] gather_rows F={f} P={p} C={c} ncells={ncells} ({referenced / (f * ncells):.4f} '
+    say(f'[K3 {path}] gather_rows F={f} P={p} C={c} ncells={ncells} ({referenced / (f * ncells):.4f} '
         f'of the rows referenced): equal to its plain version bit for bit in '
         f'{" and ".join(parts)}; bf16 kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
         f'torch.gather {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
@@ -857,13 +932,13 @@ def phase_parity(tiny_cfg, device):
         f'{len(errs)} outputs within atol 2e-3 rtol 1e-3; worst {worst} {errs[worst]:.3e}')
 
 
-def phase_flagship(cfg, device, card, fused: bool = False):
+def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
     """The serving forward + plan at full width under the bf16 policy;
     ``fused``: with the fused lift + splat (K4 in place of the lift and
     K1). Returns the launches of one step."""
     import torch
     from stp3_tpu_torch.utils.precision import policy_dtype
-    tag = '[fused]' if fused else '[flagship]'
+    tag = f'[{tag}]' if tag else '[fused]' if fused else '[flagship]'
     t0 = time.perf_counter()
     dt = policy_dtype(cfg)
     model = build_model(cfg, fused).to(device=device, dtype=dt)
@@ -1358,32 +1433,37 @@ def phase_train_parity(tiny_cfg, device):
         f'and 1e-3 in the median. ' + '; '.join(parts))
 
 
-def phase_train(cfg, device, card):
-    """The Planning stage's training at full width and batch cfg.BATCHSIZE."""
+def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
+    """A stage's training at full width and batch cfg.BATCHSIZE from a
+    seeded init on synthetic batches: one counted step (the launches in
+    ``want``, by default K1, K3 and K2 twice), 2 warm-up and ``timed``
+    timed steps; loss terms finite, most parameter tensors changed; the
+    step p50, spread, samples/s and peak memory."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
+    want = want or dict(bev_splat=1, gather_rows=1, convnext_mlp=2)
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device=device, seed=SEED)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     batches = synthetic_batches(cfg, 2, device)
     b = int(cfg.BATCHSIZE)
-    say(f'[train] {n_params} fp32 master params, compute {trainer.compute_dtype}, REMAT '
-        f'{cfg.MODEL.REMAT!r}, batch {b}; built with 2 synthetic batches in '
-        f'{time.perf_counter() - t0:.1f} s')
+    say(f'[{tag}] {cfg.TAG}: {n_params} fp32 master params, compute {trainer.compute_dtype}, '
+        f'MODEL.NORM {cfg.MODEL.NORM!r}, REMAT {cfg.MODEL.REMAT!r}, batch {b}; built with 2 '
+        f'synthetic batches in {time.perf_counter() - t0:.1f} s')
     before = [p.detach().clone() for p in trainer.model.parameters()]
 
     reset_launches()
     losses = [trainer.train_step(batches[0])]
     launches = read_launches()
-    expect_launches('one train step', launches, bev_splat=1, gather_rows=1, convnext_mlp=2)
-    say(f'[train] launches in one train step: {launches}')
+    expect_launches(f'{tag}: one train step', launches, **want)
+    say(f'[{tag}] launches in one train step: {launches}')
 
     for i in range(2):                                           # warm-up
         losses.append(trainer.train_step(batches[i % 2]))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for i in range(10):
+    for i in range(timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         losses.append(trainer.train_step(batches[i % 2]))
@@ -1394,22 +1474,82 @@ def phase_train(cfg, device, card):
     for step, loss in enumerate(losses):
         bad = [k for k, v in loss.items() if not torch.isfinite(v).all()]
         if bad:
-            fail(f'train step {step}: loss terms {bad} are not finite')
+            fail(f'{tag} step {step}: loss terms {bad} are not finite')
     changed = sum(not torch.equal(a, p) for a, p in zip(before, trainer.model.parameters()))
     if changed < len(before) // 2:
-        fail(f'only {changed} of {len(before)} parameter tensors changed in 13 steps')
+        fail(f'{tag}: only {changed} of {len(before)} parameter tensors changed in '
+             f'{len(losses)} steps')
     p50 = float(np.median(times))
     first, last = losses[0], losses[-1]
-    say(f'[train] 13 steps finite; {changed} of {len(before)} parameter tensors changed; '
-        f'total loss {first["total"].item():.4f} -> {last["total"].item():.4f}; terms of the '
-        f'last step {({k: round(v.item(), 4) for k, v in last.items()})}')
-    say(f'[train] step p50 {p50:.2f} ms (median of 10, CUDA events; spread '
+    say(f'[{tag}] {len(losses)} steps finite; {changed} of {len(before)} parameter tensors '
+        f'changed; total loss {first["total"].item():.4f} -> {last["total"].item():.4f}; terms '
+        f'of the last step {({k: round(v.item(), 4) for k, v in last.items()})}')
+    say(f'[{tag}] step p50 {p50:.2f} ms (median of {timed}, CUDA events; spread '
         f'{min(times):.2f}-{max(times):.2f} ms), {b / p50 * 1e3:.3f} samples/s, peak memory '
         f'{peak:.2f} GiB, on {card}')
     return trainer, batches, launches
 
 
-def profile_train(trainer, batches, card, steps: int = 3):
+def running_stats(model) -> dict:
+    """{name: copy} of every 'bn' site's running statistics."""
+    from stp3_tpu_torch.layers.base import batch_norms
+    return {f'{i}.{stat}': getattr(m, stat).detach().clone()
+            for i, m in enumerate(batch_norms(model)) for stat in ('mean', 'var')}
+
+
+def phase_perception_bn(cfg, device, card):
+    """[perception bn]: the Perception stage under MODEL.NORM 'bn' (the
+    reference's own stage-1 recipe, BN_MOMENTUM 0.05) at full width and
+    batch 3, bf16 policy. From one seeded init and one batch, dropout off:
+    the step under REMAT 'encoder' (whose backward recomputes the encoder)
+    and under REMAT 'none' must leave the same running statistics: a
+    second update in the recomputation would take a second momentum step,
+    about as large as the step's own change, so the two may differ by at
+    most 1e-2 of that change. Then the train step's p50 and peak memory,
+    and an eval forward on the running statistics with finite heads.
+    Returns the launches of one step."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer
+    batches = synthetic_batches(cfg, 1, device)
+    stats = {}
+    for remat in ('encoder', 'none'):
+        run_cfg = cfg.clone()
+        run_cfg.MODEL.REMAT = remat
+        trainer = Trainer(run_cfg, device=device, seed=SEED)
+        start = running_stats(trainer.model)
+        reset_launches()
+        loss = trainer.train_step(batches[0], dropout=False)
+        launches = read_launches()
+        expect_launches(f'[perception bn] REMAT {remat!r} step', launches, bev_splat=1,
+                        gather_rows=1)
+        if not all(torch.isfinite(v).all() for v in loss.values()):
+            fail(f'[perception bn] REMAT {remat!r}: a loss term is not finite')
+        stats[remat] = running_stats(trainer.model)
+        del trainer
+        torch.cuda.empty_cache()
+    change = max((stats['none'][k] - start[k]).abs().max().item() for k in start)
+    diff = max((stats['encoder'][k] - stats['none'][k]).abs().max().item() for k in start)
+    moved = sum(not torch.equal(stats['none'][k], start[k]) for k in start)
+    say(f'[perception bn] {len(start) // 2} bn sites, {moved} of {len(start)} running '
+        f'statistics moved in one step (dropout off); REMAT encoder vs none: max difference '
+        f'{diff:.3e} against the step\'s own max change {change:.3e} (limit 1e-2 of it)')
+    if not diff <= 1e-2 * change or moved < len(start) // 2:
+        fail('[perception bn] the running statistics under REMAT encoder differ from REMAT '
+             'none: the recomputation updated them again')
+    trainer, batches, launches = phase_train(cfg, device, card, 'perception bn',
+                                             bev_splat=1, gather_rows=1)
+    if '--profile' in sys.argv[1:]:
+        profile_train(trainer, batches, card, tag='perception bn')
+    out = trainer.eval_forward(batches[0])
+    for key in ('segmentation', 'pedestrian', 'hdmap'):
+        if not torch.isfinite(out[key].float()).all():
+            fail(f'[perception bn] eval forward on running statistics: {key} not finite')
+    say(f'[perception bn] eval forward on the running statistics: heads finite, '
+        f'{ {k: tuple(v.shape) for k, v in out.items() if v is not None} }')
+    return launches
+
+
+def profile_train(trainer, batches, card, steps: int = 3, tag: str = 'train'):
     """Where a train step's time goes (--profile)."""
     import torch
 
@@ -1437,10 +1577,10 @@ def profile_train(trainer, batches, card, steps: int = 3):
         trainer.train_step(batch)
         parts['host issue of one step'].append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-    say('[profile] train step, median of 6 (ms): ' + ', '.join(
+    say(f'[profile] {tag} step, median of 6 (ms): ' + ', '.join(
         f'{k} {float(np.median(v)):.2f}' for k, v in parts.items()) + f'; on {card}')
 
-    profile_window(lambda i: trainer.train_step(batches[i % 2]), 'train step', card, steps,
+    profile_window(lambda i: trainer.train_step(batches[i % 2]), f'{tag} step', card, steps,
                    top=15)
 
 
@@ -1465,6 +1605,9 @@ def main() -> None:
 
     cfg, train_cfg = flagship_cfg(), planning_cfg()
     b = int(train_cfg.BATCHSIZE)
+    stages = {'perception': stage_cfg('perception'),
+              'perception_carla': stage_cfg('carla_perception'),
+              'prediction_ber': stage_cfg('prediction_ber')}
     # each kernel's numbers at the shapes of each path that launches it
     report = {
         'bev_splat': {'serving': phase_k1(cfg, device, 'serving'),
@@ -1474,6 +1617,14 @@ def main() -> None:
         'gather_rows': {'train': phase_k3(train_cfg, device)},
         'lift_splat': {'fused': phase_k4(cfg, device)},
     }
+    # the stage train steps' splats (K1) and their backward (K3); K2 at
+    # Prediction_Ber's rows (Perception has no future prediction)
+    for path, stage in stages.items():
+        sb = int(stage.BATCHSIZE)
+        report['bev_splat'][path] = phase_k1(stage, device, path, sb)
+        report['gather_rows'][path] = phase_k3(stage, device, path)
+    report['convnext_mlp']['prediction_ber'] = phase_k2(
+        stages['prediction_ber'], device, 'prediction_ber', int(stages['prediction_ber'].BATCHSIZE))
     phase_backward(train_cfg, device)
     per_frame, launches = phase_per_frame(cfg, device)
     launches = {'per_frame': launches}
@@ -1492,6 +1643,21 @@ def main() -> None:
     # the agent path: one steady tick of each of its three modes
     launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
                          for name in counters()}
+    for path, tag, steps in (('perception', 'perception', 10),
+                             ('perception_carla', 'perception carla', 6),
+                             ('prediction_ber', 'prediction_ber', 10)):
+        want = dict(bev_splat=1, gather_rows=1, convnext_mlp=2 if path == 'prediction_ber' else 0)
+        trainer, batches, launches[path] = phase_train(stages[path], device, card, tag, steps,
+                                                       **want)
+        if '--profile' in sys.argv[1:]:
+            profile_train(trainer, batches, card, tag=tag)
+        del trainer, batches
+        torch.cuda.empty_cache()
+    launches['perception_bn'] = phase_perception_bn(
+        stage_cfg('perception', False, {'MODEL': {'NORM': 'bn'}}), device, card)
+    torch.cuda.empty_cache()
+    launches['bn_frozen'] = phase_flagship(make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}),
+                                           device, card, tag='bn_frozen')
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')
     for name, *_, main_path in KERNELS:

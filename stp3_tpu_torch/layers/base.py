@@ -17,6 +17,7 @@ module boundaries copy nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence, Tuple, Union
 
@@ -139,6 +140,63 @@ class Conv2d(nn.Module):
         return self.conv(x, self.kernel, self.bias)
 
 
+class ConvTranspose2d(nn.Module):
+    """flax ``nn.ConvTranspose`` over NCHW: the input dilated by ``stride``
+    (zeros between its pixels), padded by ``padding`` (flax's 'SAME' rule,
+    or explicit ((top, bottom), (left, right))), then correlated with the
+    kernel. The kernel is stored in torch's ConvTranspose2d layout (in,
+    out, kh, kw); ``transpose_kernel`` says whether the flax kernel is
+    torch's (flipped, (kh, kw, out, in)) or a plain HWIO conv kernel."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
+                 padding: Padding = 'SAME', bias: bool = True, transpose_kernel: bool = False):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.transpose_kernel = transpose_kernel
+        self.kernel = nn.Parameter(torch.zeros(cin, cout, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        i, o, kh, kw = self.kernel.shape
+        # flax's fan-in of the kernel it creates: (kh, kw, out, in) when
+        # transposed, else (kh, kw, in, out)
+        lecun_normal_(self.kernel, (o if self.transpose_kernel else i) * kh * kw, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def flax_leaf(self, name: str, arr: np.ndarray) -> np.ndarray:
+        if name != 'kernel':
+            return arr
+        # torch layout W[i, o, a, b]: the correlation kernel is W flipped
+        # with its channel axes swapped
+        return arr.transpose(3, 2, 0, 1) if self.transpose_kernel else (
+            arr[::-1, ::-1].transpose(2, 3, 0, 1))
+
+    def pads(self, k: int) -> Tuple[int, int]:
+        """lax.conv_transpose's 'SAME' padding of one spatial axis."""
+        s = self.stride
+        pad_len = k + s - 2
+        before = k - 1 if s > k - 1 else -(-pad_len // 2)
+        return before, pad_len - before
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kh, kw = self.kernel.shape[-2:]
+        (pt, pb), (pl, pr) = ((self.pads(kh), self.pads(kw)) if self.padding == 'SAME'
+                              else self.padding)
+        dt = common_dtype(x, self.kernel)
+        s = self.stride
+        b, c, h, w = x.shape
+        if s > 1:
+            dilated = x.new_zeros(b, c, (h - 1) * s + 1, (w - 1) * s + 1, dtype=dt)
+            dilated[..., ::s, ::s] = x
+            x = dilated
+        x = F.pad(x.to(dt), (pl, pr, pt, pb))
+        kernel = self.kernel.to(dt).flip(-2, -1).transpose(0, 1)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv2d(x, kernel, bias)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``; kernel stored (out, in) for ``F.linear``."""
 
@@ -242,31 +300,109 @@ class LayerNorm(nn.Module):
         return y.to(common_dtype(x, self.scale))
 
 
+NORM_KINDS = ('gn', 'ln', 'none', 'bn', 'bn_frozen')
+
+
 class Norm(nn.Module):
-    """``stp3_tpu.layers.convolutions.Norm`` for kinds 'gn' (child
-    ``GroupNorm_0``), 'ln' (child ``LayerNorm_0``) and 'none'. Channels-
-    first input. ``eps`` belongs to the BatchNorm kinds only (1e-3 at the
-    EfficientNet sites); those kinds are not ported yet."""
+    """``stp3_tpu.layers.convolutions.Norm``. Channels-first input.
+
+    'gn' (child ``GroupNorm_0``), 'ln' (child ``LayerNorm_0``), 'none';
+    and the BatchNorm kinds, whose leaves sit on the Norm itself as in
+    flax: parameters ``scale`` and ``bias``, buffers ``mean`` and ``var``.
+
+    'bn': in training (the module's ``training`` flag) the batch's
+    statistics, in fp32 (float64 for a float64 input) over every non-channel
+    axis, var = max(E[x^2] - mean^2, 0); the running statistics move by
+    ``momentum`` in torch's convention (new = (1 - m) old + m batch, with
+    the unbiased variance) unless ``update_running`` is off (the encoder's
+    recomputation under REMAT, ``running_stats_frozen``). In eval, the
+    running statistics. 'bn_frozen': always the running statistics, which
+    are buffers, so the optimizer, the weight decay and the gradient clip
+    never see them (the JAX trainer masks them out with ``optax.masked``).
+    ``momentum`` is set from MODEL.BN_MOMENTUM by the model that owns the
+    site. ``eps`` (1e-5; 1e-3 at the EfficientNet sites) belongs to the
+    BatchNorm kinds only.
+
+    Either way ``inv = rsqrt(var + eps) * scale`` is formed in the
+    statistics' type and cast, with the mean and the bias, to the input's
+    dtype: ``(x - mean) * inv + bias`` in that dtype, as the JAX layer
+    computes it."""
 
     def __init__(self, channels: int, kind: str = 'gn', groups: int = 8,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        if kind in ('bn', 'bn_frozen'):
-            raise NotImplementedError(f"norm kind '{kind}' is not ported yet")
-        if kind not in ('gn', 'ln', 'none'):
+        if kind not in NORM_KINDS:
             raise ValueError(f'unknown norm kind {kind!r}')
-        self.kind, self.eps = kind, eps
+        self.kind, self.eps, self.momentum = kind, eps, momentum
+        self.update_running = True
         if kind == 'gn':
             self.GroupNorm_0 = GroupNorm(channels, num_groups(channels, groups))
         elif kind == 'ln':
             self.LayerNorm_0 = LayerNorm(channels)
+        elif kind in ('bn', 'bn_frozen'):
+            self.scale = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+            self.register_buffer('mean', torch.zeros(channels))
+            self.register_buffer('var', torch.ones(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.kind in ('bn', 'bn_frozen'):
+            with torch.no_grad():
+                self.scale.fill_(1.0)
+                self.bias.zero_()
+                self.mean.zero_()
+                self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == 'gn':
             return self.GroupNorm_0(x)
         if self.kind == 'ln':
             return self.LayerNorm_0(x, dim=1)
-        return x
+        if self.kind == 'none':
+            return x
+        if self.kind == 'bn' and self.training:
+            mean, var = self._batch_stats(x)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        shape = (1, x.shape[1]) + (1,) * (x.ndim - 2)
+        return ((x - mean.to(x.dtype).reshape(shape)) * inv.to(x.dtype).reshape(shape)
+                + self.bias.to(x.dtype).reshape(shape))
+
+    def _batch_stats(self, x: torch.Tensor):
+        red = (0,) + tuple(range(2, x.ndim))
+        x32 = x.to(stats_dtype(x))
+        mean = x32.mean(red)
+        var = ((x32 * x32).mean(red) - mean * mean).clamp_min(0.0)
+        if self.update_running:
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.mul_(1.0 - m).add_(m * mean.to(self.mean.dtype))
+                self.var.mul_(1.0 - m).add_(m * (var * (n / max(n - 1, 1))).to(self.var.dtype))
+        return mean, var
+
+
+
+def batch_norms(module: nn.Module):
+    """Every 'bn' Norm site in ``module`` (the ones with running updates)."""
+    return [m for m in module.modules() if isinstance(m, Norm) and m.kind == 'bn']
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Within: the 'bn' sites of ``module`` normalise with their batch's
+    statistics but leave their running statistics alone (a recomputation
+    of a forward that has already updated them once)."""
+    sites = batch_norms(module)
+    before = [m.update_running for m in sites]
+    for m in sites:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(sites, before):
+            m.update_running = flag
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

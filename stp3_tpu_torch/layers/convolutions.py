@@ -11,7 +11,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stp3_tpu_torch.layers.base import (Conv2d, Dense, LayerNorm, Norm,
+from stp3_tpu_torch.layers.base import (Conv2d, ConvTranspose2d, Dense, LayerNorm, Norm,
                                         common_dtype, dropout, to_first, to_last)
 from stp3_tpu_torch.ops.kernels.convnext_mlp import convnext_mlp
 
@@ -47,59 +47,78 @@ def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
 
 
 class ConvBlock(ChannelsLast):
-    """conv -> norm -> activation (no transposed variant yet)."""
+    """conv (or, with ``transpose``, flax's 'SAME' transposed conv) ->
+    norm -> activation."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3, stride: int = 1,
-                 norm: str = 'gn', activation: str = 'relu', use_bias: bool = False):
+                 norm: str = 'gn', activation: str = 'relu', use_bias: bool = False,
+                 transpose: bool = False):
         super().__init__()
-        self.Conv_0 = Conv2d(cin, cout, kernel_size, stride, bias=use_bias)
+        if transpose:
+            self.ConvTranspose_0 = ConvTranspose2d(cin, cout, kernel_size, stride,
+                                                   bias=use_bias)
+        else:
+            self.Conv_0 = Conv2d(cin, cout, kernel_size, stride, bias=use_bias)
         self.Norm_0 = Norm(cout, norm)
         self.act = {'relu': F.relu, 'lrelu': lambda v: F.leaky_relu(v, 0.1),
                     'elu': F.elu, 'tanh': torch.tanh, 'none': lambda v: v}[activation]
 
     def nchw(self, x):
-        return self.act(self.Norm_0(self.Conv_0(x)))
+        conv = self.ConvTranspose_0 if hasattr(self, 'ConvTranspose_0') else self.Conv_0
+        return self.act(self.Norm_0(conv(x)))
 
 
 class Bottleneck(ChannelsLast):
-    """1x1 down-project -> kxk (optionally stride 2) -> 1x1 up-project, each
-    norm + relu, with a projected residual (the upsampling variant is not
-    ported yet). The downsampling skip
-    zero-pads an odd H/W at the bottom/right and THEN 2x2-max-pools
-    (not ``MaxPool2d(ceil_mode=True)``, which would ignore the pad)."""
+    """1x1 down-project -> kxk (stride 1, stride 2, or with ``upsample`` a
+    stride-2 transposed conv) -> 1x1 up-project, each norm + relu, with a
+    projected residual. The downsampling skip zero-pads an odd H/W at the
+    bottom/right and THEN 2x2-max-pools (not ``MaxPool2d(ceil_mode=True)``,
+    which would ignore the pad); the upsampling skip is a 2x bilinear
+    upsample."""
 
     def __init__(self, cin: int, cout: Optional[int] = None, kernel_size: int = 3,
-                 downsample: bool = False, norm: str = 'gn'):
+                 downsample: bool = False, norm: str = 'gn', upsample: bool = False):
         super().__init__()
         cout = cout or cin
         bneck = cin // 2
         p = kernel_size // 2
-        self.downsample = downsample
+        self.downsample, self.upsample = downsample, upsample
         self.Conv_0 = Conv2d(cin, bneck, 1, bias=False)
         self.Norm_0 = Norm(bneck, norm)
-        self.Conv_1 = Conv2d(bneck, bneck, kernel_size, 2 if downsample else 1,
-                             padding=((p, p), (p, p)), bias=False)
+        if upsample:
+            # torch's ConvTranspose2d(padding=k//2, output_padding=k//2) window
+            self.ConvTranspose_0 = ConvTranspose2d(bneck, bneck, kernel_size, 2,
+                                                   ((p, p + 1), (p, p + 1)), bias=False,
+                                                   transpose_kernel=True)
+        else:
+            self.Conv_1 = Conv2d(bneck, bneck, kernel_size, 2 if downsample else 1,
+                                 padding=((p, p), (p, p)), bias=False)
         self.Norm_1 = Norm(bneck, norm)
-        self.Conv_2 = Conv2d(bneck, cout, 1, bias=False)
+        # flax numbers the Conv children in the order it creates them
+        self.names = ('Conv_1', 'Conv_2') if upsample else ('Conv_2', 'Conv_3')
+        setattr(self, self.names[0], Conv2d(bneck, cout, 1, bias=False))
         self.Norm_2 = Norm(cout, norm)
-        self.project = cout != cin or downsample
+        self.project = cout != cin or downsample or upsample
         if self.project:
-            self.Conv_3 = Conv2d(cin, cout, 1, bias=False)
+            setattr(self, self.names[1], Conv2d(cin, cout, 1, bias=False))
             self.Norm_3 = Norm(cout, norm)
 
     def nchw(self, x):
         h = F.relu(self.Norm_0(self.Conv_0(x)))
-        h = F.relu(self.Norm_1(self.Conv_1(h)))
-        h = F.relu(self.Norm_2(self.Conv_2(h)))
+        mid = self.ConvTranspose_0 if self.upsample else self.Conv_1
+        h = F.relu(self.Norm_1(mid(h)))
+        h = F.relu(self.Norm_2(getattr(self, self.names[0])(h)))
         if not self.project:
             return h + x
         skip = x
-        if self.downsample:
+        if self.upsample:
+            skip = upsample_bilinear(skip, 2)
+        elif self.downsample:
             ph, pw = skip.shape[-2] % 2, skip.shape[-1] % 2
             if ph or pw:
                 skip = F.pad(skip, (0, pw, 0, ph))
             skip = F.max_pool2d(skip, 2, 2)
-        return h + self.Norm_3(self.Conv_3(skip))
+        return h + self.Norm_3(getattr(self, self.names[1])(skip))
 
 
 class UpsamplingConcat(ChannelsLast):

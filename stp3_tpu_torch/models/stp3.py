@@ -13,11 +13,21 @@ the newest frame and take the past frames' BEV grids from a cache, aligned
 to the present by SE(2) grid warps; the static variants splat with a plan
 precomputed from a fixed rig (``ops/static_splat.py``).
 
+Every stage YAML builds: the Perception stage (no future prediction,
+no present distribution), the Prediction and Planning stages with a
+GAUSSIAN, MIXGAUSSIAN or BERNOULLI present distribution or none
+(PROBABILISTIC.ENABLED False: a zero latent), the identity temporal
+model, the uniform lift (USE_DEPTH_DISTRIBUTION False) and every
+MODEL.NORM ('gn', 'ln', 'bn', 'bn_frozen', 'none').
+
 Training (``train=True``) draws every random number from the caller's
 ``torch.Generator``: the EfficientNet drop-connect masks, the four
-DeepLabHeads' dropout masks and the GAUSSIAN latent noise.
+DeepLabHeads' dropout masks and the latent noise. 'bn' normalises with
+the batch's statistics while the module is in training mode
+(``model.train()``) and updates its running statistics once a forward.
 ``MODEL.REMAT='encoder'`` recomputes the encoder's activations in the
-backward (``torch.utils.checkpoint``), replaying the same masks.
+backward (``torch.utils.checkpoint``), replaying the same masks and
+leaving the running statistics alone.
 """
 from __future__ import annotations
 
@@ -29,14 +39,14 @@ import torch.nn as nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from stp3_tpu_torch.layers.base import to_first, to_last
+from stp3_tpu_torch.layers.base import Norm, running_stats_frozen, to_first, to_last
 from stp3_tpu_torch.models.cost import CostConfig
 from stp3_tpu_torch.models.decoder import Decoder
 from stp3_tpu_torch.models.distributions import DistributionModule
 from stp3_tpu_torch.models.encoder import Encoder
 from stp3_tpu_torch.models.future_prediction import FuturePrediction
 from stp3_tpu_torch.models.planning_model import Planning
-from stp3_tpu_torch.models.temporal_model import TemporalModel
+from stp3_tpu_torch.models.temporal_model import TemporalModel, TemporalModelIdentity
 from stp3_tpu_torch.ops.bev_pool import (discounted_accumulate, project_lift_splat_fused,
                                          project_to_birds_eye_view)
 from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
@@ -57,8 +67,9 @@ def _cam_front_index(names) -> int:
 @dataclasses.dataclass(frozen=True)
 class STP3Config:
     """The subset of the config tree the model reads (the JAX package's
-    STP3Config, plus ``norm``: this package keeps the norm kind in the
-    config instead of a process-wide default)."""
+    STP3Config, plus ``norm`` and ``bn_momentum``: this package keeps the
+    norm kind and the BatchNorm momentum in the config instead of
+    process-wide defaults)."""
     x_bound: Tuple[float, float, float] = (-50.0, 50.0, 0.5)
     y_bound: Tuple[float, float, float] = (-50.0, 50.0, 0.5)
     z_bound: Tuple[float, float, float] = (-10.0, 10.0, 20.0)
@@ -105,6 +116,7 @@ class STP3Config:
     # the fused lift + splat (K4); set in code, as in the JAX package
     fused_lift_splat: bool = False
     norm: str = 'gn'
+    bn_momentum: float = 0.1
     remat: str = 'none'
 
     @classmethod
@@ -147,6 +159,7 @@ class STP3Config:
             cam_front_index=(1 if cfg.PLANNING.get('CAM_FRONT_PARITY', False)
                              else _cam_front_index(cfg.IMAGE.NAMES)),
             norm=cfg.MODEL.get('NORM', 'gn'),
+            bn_momentum=float(cfg.MODEL.get('BN_MOMENTUM', 0.1)),
             remat=cfg.MODEL.get('REMAT', 'none'),
         )
 
@@ -176,6 +189,8 @@ class STP3Config:
 
     @property
     def future_pred_in_channels(self) -> int:
+        if self.temporal_name == 'identity':
+            return self.temporal_in_channels
         return TemporalModel.out_channels(self.start_out_channels, self.receptive_field,
                                           self.extra_in_channels)
 
@@ -187,34 +202,51 @@ def lift_depth_context(feat: torch.Tensor, depth_logits: torch.Tensor) -> torch.
     return depth_prob.movedim(-1, -3)[..., None] * feat[..., None, :, :, :]
 
 
+def lift_uniform(feat: torch.Tensor, depth_channels: int) -> torch.Tensor:
+    """USE_DEPTH_DISTRIBUTION False: the context repeated over the D bins.
+    feat (..., Hf, Wf, C) -> (..., D, Hf, Wf, C) (an expanded view)."""
+    return feat[..., None, :, :, :].expand(
+        *feat.shape[:-3], depth_channels, *feat.shape[-3:])
+
+
 def context_depth_rays(cfg: STP3Config, feat: torch.Tensor, depth: torch.Tensor):
     """Ray-major (B, rays, C) context and (B, rays, D) depth distribution
     for the static splat plans (ray = cam*Hf*Wf + h*Wf + w). feat (B, N,
-    Hf, Wf, C); depth the encoder's flat (B*N, Hf, Wf, D) logits."""
+    Hf, Wf, C); depth the encoder's flat (B*N, Hf, Wf, D) logits, unused
+    without the depth distribution (all ones, as ``lift_uniform``)."""
     b = feat.shape[0]
     ctx = feat.reshape(b, -1, feat.shape[-1])
+    if not cfg.use_depth_distribution:
+        return ctx, ctx.new_ones(*ctx.shape[:-1], cfg.depth_channels)
     dp = torch.softmax(depth, -1).reshape(b, -1, cfg.depth_channels)
     return ctx, dp
 
 
 def _check_supported(c: STP3Config) -> None:
-    """This package ports the flagship serving slice; refuse the rest."""
-    unsupported = {
-        'MODEL.TEMPORAL_MODEL.NAME': (c.temporal_name, 'temporal_block'),
-        'PROBABILISTIC.ENABLED': (c.probabilistic, True),
-        'PROBABILISTIC.METHOD': (c.prob_method, 'GAUSSIAN'),
-        'MODEL.ENCODER.USE_DEPTH_DISTRIBUTION': (c.use_depth_distribution, True),
-        'LIFT.GT_DEPTH': (c.gt_depth, False),
-    }
-    for key, (have, want) in unsupported.items():
-        if have != want:
-            raise NotImplementedError(f'{key}={have!r} is not ported yet (only {want!r})')
-    if c.n_future <= 0 or c.receptive_field < 2:
-        raise NotImplementedError('only N_FUTURE_FRAMES > 0 and '
-                                  'TIME_RECEPTIVE_FIELD >= 2 are ported')
-    if c.remat not in ('none', 'encoder'):
+    """Refuse what this package does not port, and what the JAX package
+    refuses, with the JAX package's exception where it has one."""
+    tags = set() if c.remat == 'none' else set(c.remat.split('+'))
+    unknown = tags - {'encoder', 'temporal', 'future', 'decoder', 'cells', 'gates'}
+    if unknown:
+        raise NotImplementedError(f'MODEL.REMAT stages {sorted(unknown)}')
+    if 'temporal' in tags and c.temporal_name == 'identity':
+        raise ValueError("MODEL.REMAT 'temporal' has no effect with "
+                         "MODEL.TEMPORAL_MODEL.NAME 'identity'")
+    if tags & {'future', 'cells', 'gates'} and c.n_future == 0:
+        raise ValueError(f"MODEL.REMAT {sorted(tags & {'future', 'cells', 'gates'})} has no "
+                         "effect with N_FUTURE_FRAMES 0 (no future-prediction stage is built)")
+    if tags - {'encoder'}:
         raise NotImplementedError(f"MODEL.REMAT={c.remat!r} is not ported yet (only 'none' "
                                   "and 'encoder'; the other stages are on ROADMAP.md queue 1)")
+    if c.gt_depth:
+        raise NotImplementedError('LIFT.GT_DEPTH=True is not ported yet')
+    if c.temporal_name not in ('temporal_block', 'identity'):
+        raise NotImplementedError(f'Temporal module {c.temporal_name}')
+    if c.temporal_name == 'temporal_block' and c.receptive_field < 2:
+        # the JAX model's head then keeps the input's width, not the
+        # START_OUT_CHANNELS its later stages are built for
+        raise NotImplementedError("MODEL.TEMPORAL_MODEL.NAME 'temporal_block' needs "
+                                  "TIME_RECEPTIVE_FIELD >= 2 ('identity' takes any)")
 
 
 class STP3(nn.Module):
@@ -236,14 +268,21 @@ class STP3(nn.Module):
         self._frustum_on: Dict[torch.device, torch.Tensor] = {}
         norm = c.norm
         self.encoder = Encoder(c.encoder_out_channels, c.depth_channels, c.encoder_name,
-                               c.encoder_downsample, norm)
-        self.temporal_model = TemporalModel(
-            c.temporal_in_channels, c.receptive_field, c.bev_size, c.start_out_channels,
-            c.extra_in_channels, c.inbetween_layers, c.pyramid_pooling, norm)
+                               c.encoder_downsample, norm, c.use_depth_distribution)
+        if c.temporal_name == 'identity':
+            self.temporal_model = TemporalModelIdentity()
+        else:
+            self.temporal_model = TemporalModel(
+                c.temporal_in_channels, c.receptive_field, c.bev_size, c.start_out_channels,
+                c.extra_in_channels, c.inbetween_layers, c.pyramid_pooling, norm)
         cf = c.future_pred_in_channels
-        self.present_distribution = DistributionModule(cf, c.latent_dim, c.prob_method, norm)
-        self.future_prediction = FuturePrediction(cf, c.latent_dim, c.n_future, c.mixture,
-                                                  c.n_gru_blocks, c.n_res_layers, norm)
+        if c.n_future > 0:
+            if c.probabilistic:
+                self.present_distribution = DistributionModule(cf, c.latent_dim,
+                                                               c.prob_method, norm)
+            self.future_prediction = FuturePrediction(cf, c.latent_dim, c.n_future,
+                                                      c.mixture, c.n_gru_blocks,
+                                                      c.n_res_layers, norm)
         self.decoder = Decoder(cf, c.n_classes, c.receptive_field, c.n_hdmap,
                                c.predict_pedestrian, c.perceive_hdmap, c.predict_instance,
                                c.predict_future_flow, c.planning_enabled, norm)
@@ -259,6 +298,22 @@ class STP3(nn.Module):
         names += ['planning'] if c.planning_enabled else []
         for n in names:
             setattr(self, f'{n}_weight', nn.Parameter(torch.zeros(())))
+        # MODEL.BN_MOMENTUM at every BatchNorm site (the reference sets it
+        # on all of its BNs when it builds the model)
+        for m in self.modules():
+            if isinstance(m, Norm):
+                m.momentum = c.bn_momentum
+
+    def noise_shape(self, b: int) -> Tuple[int, ...]:
+        """The shape of the training-time latent draw of a batch of ``b``:
+        GAUSSIAN (B, 1, L); MIXGAUSSIAN (3, B, 1, L), its three draws in
+        order; BERNOULLI (B, nx, ny, L), one a BEV cell."""
+        L = self.cfg.latent_dim
+        if self.cfg.prob_method == 'MIXGAUSSIAN':
+            return (3, b, 1, L)
+        if self.cfg.prob_method == 'BERNOULLI':
+            return (b, *self.cfg.bev_size, L)
+        return (b, 1, L)
 
     def _frustum(self, device) -> torch.Tensor:
         if device not in self._frustum_on:
@@ -272,20 +327,25 @@ class STP3(nn.Module):
         encoder's parameters as they are now, so a recomputation sees the
         same (e.g. bf16) copies, and it replays the forward's masks from
         the generator state it started with, leaving the generator where
-        it was."""
+        it was; its 'bn' sites normalise with the batch statistics again
+        (the same values: the same input) without a second running
+        update."""
         if self.cfg.remat != 'encoder' or not torch.is_grad_enabled():
             return self.encoder(image, rng)
         start = None if rng is None else rng.get_state()
         ran = []
 
         def run(params, x):
-            if rng is not None and ran:                   # the backward's recomputation
-                now = rng.get_state()
-                rng.set_state(start)
-                try:
-                    return functional_call(self.encoder, params, (x, rng))
-                finally:
-                    rng.set_state(now)
+            if ran:                                  # the backward's recomputation
+                with running_stats_frozen(self.encoder):
+                    if rng is None:
+                        return functional_call(self.encoder, params, (x, rng))
+                    now = rng.get_state()
+                    rng.set_state(start)
+                    try:
+                        return functional_call(self.encoder, params, (x, rng))
+                    finally:
+                        rng.set_state(now)
             ran.append(True)
             return functional_call(self.encoder, params, (x, rng))
 
@@ -302,16 +362,20 @@ class STP3(nn.Module):
         b, s, n = image.shape[:3]
         geometry = get_geometry(self._frustum(image.device), intrinsics.float(),
                                 extrinsics.float())
+        c = self.cfg
         feat, depth = self.encode(image.reshape(b * s * n, *image.shape[3:]), rng)
         feat = feat.reshape(b, s, n, *feat.shape[1:])
-        depth = depth.reshape(b, s, n, *depth.shape[1:])
-        cam_front = feat[:, -1, self.cfg.cam_front_index]
-        if self.cfg.fused_lift_splat:
-            x = project_lift_splat_fused(feat, depth, geometry, future_egomotion.float(),
+        if depth is not None:
+            depth = depth.reshape(b, s, n, *depth.shape[1:])
+        cam_front = feat[:, -1, c.cam_front_index] if c.planning_enabled else None
+        if c.fused_lift_splat:
+            x = project_lift_splat_fused(feat, c.depth_channels if depth is None else depth,
+                                         geometry, future_egomotion.float(),
                                          self.bev_resolution, self.bev_start_position,
-                                         self.bev_dimension, self.cfg.discount)
+                                         self.bev_dimension, c.discount)
             return x, depth, cam_front
-        lifted = lift_depth_context(feat, depth)                   # (B,S,N,D,Hf,Wf,C)
+        lifted = (lift_uniform(feat, c.depth_channels) if depth is None
+                  else lift_depth_context(feat, depth))            # (B,S,N,D,Hf,Wf,C)
         x = project_to_birds_eye_view(lifted, geometry, future_egomotion.float(),
                                       self.bev_resolution, self.bev_start_position,
                                       self.bev_dimension, self.cfg.discount)
@@ -319,18 +383,35 @@ class STP3(nn.Module):
 
     def distribution_forward(self, present_state, noise=None):
         """present_state (B, C, 1, H, W) -> sample (B, L, 1, H, W) and the
-        distribution stats. ``noise`` (B, 1, L) is the GAUSSIAN draw; None
-        means zero (eval)."""
+        distribution stats (channels-last, as the JAX package's). ``noise``
+        has ``noise_shape``; None means zero (eval)."""
         c = self.cfg
         b, _, s, h, w = present_state.shape
         L = c.latent_dim
-        out = self.present_distribution.nchw(present_state)        # (B, 1, 2L)
-        mu = out[:, :, :L]
-        log_sigma = out[:, :, L:2 * L].clamp(c.min_log_sigma, c.max_log_sigma)
-        noise = torch.zeros_like(mu) if noise is None else noise.to(mu)
-        sample = mu + torch.exp(log_sigma) * noise
+        out = self.present_distribution.nchw(present_state)
+        if c.prob_method == 'BERNOULLI':                           # (B, L, H, W)
+            noise = torch.zeros_like(out) if noise is None else to_first(noise.to(out))
+            sample = (torch.exp(out) + noise)[:, :, None]
+            return sample, {'present_log_prob': to_last(out)}
+
+        def gaussian(params, draw):
+            mu = params[:, :, :L]
+            log_sigma = params[:, :, L:2 * L].clamp(c.min_log_sigma, c.max_log_sigma)
+            draw = torch.zeros_like(mu) if draw is None else draw.to(mu)
+            return mu + torch.exp(log_sigma) * draw, mu, log_sigma
+
+        if c.prob_method == 'GAUSSIAN':                            # (B, 1, 2L)
+            sample, mu, log_sigma = gaussian(out, noise)
+            stats = {'present_mu': mu, 'present_log_sigma': log_sigma}
+        else:                                                      # (B, 1, 6L + 3)
+            coef = torch.softmax(out[:, :, 6 * L:], -1)
+            parts = [gaussian(out[:, :, 2 * i * L:2 * (i + 1) * L],
+                              None if noise is None else noise[i]) for i in range(3)]
+            sample = sum(smp * coef[:, :, i:i + 1] for i, (smp, _, _) in enumerate(parts))
+            stats = {'present_mu': [mu for _, mu, _ in parts],
+                     'present_log_sigma': [ls for _, _, ls in parts]}
         sample = sample.reshape(b, s, L).transpose(1, 2)[..., None, None].expand(b, L, s, h, w)
-        return sample, {'present_mu': mu, 'present_log_sigma': log_sigma}
+        return sample, stats
 
     def forward(self, image, intrinsics, extrinsics, future_egomotion, train: bool = False,
                 generator: Optional[torch.Generator] = None, noise=None,
@@ -340,15 +421,18 @@ class STP3(nn.Module):
         dict, channels-last.
 
         ``train``: drop-connect and dropout masks (unless ``dropout`` is
-        False) and the GAUSSIAN noise (unless ``noise`` (B, 1, L) is given)
-        are drawn from ``generator``, which must then be on the model's
-        device."""
+        False) and the latent noise (unless ``noise``, of ``noise_shape``,
+        is given) are drawn from ``generator``, which must then be on the
+        model's device. Whether the 'bn' sites use the batch's statistics
+        is the module's training mode, not ``train``."""
         rf = self.cfg.receptive_field
-        if train and generator is None and (dropout or noise is None):
+        # a latent is drawn only where a present distribution is built
+        draws = train and noise is None and self.cfg.n_future > 0 and self.cfg.probabilistic
+        if train and generator is None and (dropout or draws):
             raise ValueError('train=True draws random numbers: pass a torch.Generator')
         masks = generator if train and dropout else None
-        if train and noise is None:
-            noise = torch.randn(image.shape[0], 1, self.cfg.latent_dim, generator=generator,
+        if draws:
+            noise = torch.randn(self.noise_shape(image.shape[0]), generator=generator,
                                 device=image.device)
         ego = future_egomotion[:, :rf]
         x, depth, cam_front = self.calculate_birds_eye_view_features(
@@ -376,8 +460,14 @@ class STP3(nn.Module):
             ego_spatial = ego_shift[:, :, None, None, :].expand(b, s, h, w, 6)
             x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
         states = self.temporal_model.nchw(to_first(x), rng)         # (B, C, S, H, W)
-        sample, stats = self.distribution_forward(states[:, :, -1:], noise)
-        states = self.future_prediction.nchw(sample, states, rng)
+        stats = {}
+        if c.n_future > 0:
+            if c.probabilistic:
+                sample, stats = self.distribution_forward(states[:, :, -1:], noise)
+            else:
+                b, _, _, h, w = states.shape
+                sample = states.new_zeros(b, c.latent_dim, 1, h, w)
+            states = self.future_prediction.nchw(sample, states, rng)
         return self.decoder(to_last(states)), stats
 
     # ------------------------------------------------------------- serving
@@ -389,11 +479,12 @@ class STP3(nn.Module):
         b, n = image.shape[:2]
         geometry = get_geometry(self._frustum(image.device), intrinsics[:, None].float(),
                                 extrinsics[:, None].float())
+        c = self.cfg
         feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
         feat = feat.reshape(b, n, *feat.shape[1:])
-        depth = depth.reshape(b, n, *depth.shape[1:])
-        cam_front = feat[:, self.cfg.cam_front_index]
-        lifted = lift_depth_context(feat, depth)                    # (B,N,D,Hf,Wf,C)
+        cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
+        lifted = (lift_uniform(feat, c.depth_channels) if depth is None else
+                  lift_depth_context(feat, depth.reshape(b, n, *depth.shape[1:])))
         zero_ego = torch.zeros(b, 1, 6, device=image.device)
         bev = project_to_birds_eye_view(lifted[:, None], geometry, zero_ego,
                                         self.bev_resolution, self.bev_start_position,
@@ -427,7 +518,7 @@ class STP3(nn.Module):
         b, n = image.shape[:2]
         feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
         feat = feat.reshape(b, n, *feat.shape[1:])                   # (B,N,Hf,Wf,C)
-        cam_front = feat[:, c.cam_front_index]
+        cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
         ctx, dp = context_depth_rays(c, feat, depth)
         if isinstance(plan, dict):
             _, hf, wf = self.frustum.shape[:3]
@@ -447,7 +538,9 @@ class STP3(nn.Module):
     def _serve_tail(self, bev_new, cam_front, cached_bev, future_egomotion, trajs,
                     commands, target_points):
         """After the present frame's splat: cache alignment, the discounted
-        accumulate, temporal model, future prediction, decode, plan."""
+        accumulate, temporal model, future prediction, decode, plan. Without
+        a planner (PLANNING.ENABLED False, as in the Perception stage) the
+        refined trajectory is None."""
         c = self.cfg
         rf = c.receptive_field
         frames = torch.cat([cached_bev.to(bev_new.dtype), bev_new[:, None]], 1)
@@ -457,6 +550,8 @@ class STP3(nn.Module):
         x = discounted_accumulate(aligned, c.discount)              # (B, rf, nx, ny, C)
         output, _ = self._predict(x, ego)
         output['cam_front'] = cam_front
+        if not c.planning_enabled:
+            return None, output, frames[:, 1:]
         seg = output['segmentation'].argmax(-1)
         ped = output['pedestrian'].argmax(-1) if c.predict_pedestrian else torch.zeros_like(seg)
         occupancy = torch.logical_or(seg, ped).to(x.dtype)

@@ -1,7 +1,8 @@
 """Temporal model over BEV sequences (port of
 stp3_tpu/models/temporal_model.py): ``receptive_field - 1``
 TemporalBlocks with spatio-temporal pyramid pooling over the full BEV
-extent, then a per-frame DeepLabHead. (B, S, H, W, C) in and out."""
+extent, then a per-frame DeepLabHead; or the identity
+(MODEL.TEMPORAL_MODEL.NAME 'identity'). (B, S, H, W, C) in and out."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -58,3 +59,13 @@ class TemporalModel(nn.Module):
 
     def forward(self, x):
         return to_last(self.nchw(to_first(x)))
+
+
+class TemporalModelIdentity(nn.Module):
+    """The pass-through temporal model; it has no parameters."""
+
+    def nchw(self, x, rng: Optional[torch.Generator] = None):
+        return x
+
+    def forward(self, x):
+        return x

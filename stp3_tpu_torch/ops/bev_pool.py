@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from stp3_tpu_torch.ops.geometry import cumulative_prewarp_transforms
-from stp3_tpu_torch.ops.kernels.bev_splat import bev_pool_v1, bev_pool_v2, bev_splat
+from stp3_tpu_torch.ops.kernels.bev_splat import (bev_pool_v1, bev_pool_v2, bev_splat,
+                                                 overflow_out_of_range)
 from stp3_tpu_torch.ops.kernels.lift_splat import lift_splat_frames
 
 METHODS = ('auto', 'pallas2b', 'pallas', 'pallas2', 'sort', 'scatter')
@@ -48,10 +49,12 @@ def ranks_of(coords: torch.Tensor, valid: torch.Tensor, bev_dimension) -> torch.
 def _segment_sum(feats: torch.Tensor, ranks: torch.Tensor, ncells: int,
                  sort: bool) -> torch.Tensor:
     """The XLA paths' function: (F, P, C) rows summed per rank in their own
-    dtype onto ncells + 1 rows (the last, the overflow row, dropped);
-    ``sort`` orders the rows by rank first, as method 'sort' does."""
+    dtype onto ncells + 1 rows a frame (the last, the overflow row, dropped;
+    a rank outside [0, ncells) goes there, as JAX's ``segment_sum`` drops
+    it); ``sort`` orders the rows by rank first, as method 'sort' does."""
     f, _, c = feats.shape
-    idx = ranks.long() + torch.arange(f, device=feats.device)[:, None] * (ncells + 1)
+    idx = (overflow_out_of_range(ranks, ncells)
+           + torch.arange(f, device=feats.device)[:, None] * (ncells + 1))
     idx, rows = idx.reshape(-1), feats.reshape(-1, c)
     if sort:
         order = torch.argsort(idx, stable=True)
@@ -160,15 +163,21 @@ def project_lift_splat_fused(ctx: torch.Tensor, depth_logits: torch.Tensor,
     never exists; K4 forms depth_prob x ctx row by row inside the scatter.
 
     ctx (B, S, N, Hf, Wf, C) camera context; depth_logits (B, S, N, Hf,
-    Wf, D); geometry (B, S, N, D, Hf, Wf, 3) fp32. Returns (B, S, nx, ny,
-    nz*C) in ctx's dtype, the contract of ``project_to_birds_eye_view``."""
+    Wf, D), or an int D for the uniform lift (USE_DEPTH_DISTRIBUTION
+    False: every depth probability 1); geometry (B, S, N, D, Hf, Wf, 3)
+    fp32. Returns (B, S, nx, ny, nz*C) in ctx's dtype, the contract of
+    ``project_to_birds_eye_view``."""
     b, s, n, hf, wf, c = ctx.shape
-    d = depth_logits.shape[-1]
     nx, ny, nz = (int(v) for v in np.asarray(bev_dimension))
     ranks = prewarped_ranks(geometry, future_egomotion, bev_resolution,
                             bev_start_position, bev_dimension)
+    if isinstance(depth_logits, int):
+        d = depth_logits
+        dp = ctx.new_ones(b, s, n, d, hf, wf)
+    else:
+        d = depth_logits.shape[-1]
+        dp = torch.softmax(depth_logits, -1).movedim(-1, 3)       # (B, S, N, D, Hf, Wf)
     ray_ids = lift_ray_ids(n, d, hf, wf, ctx.device)
-    dp = torch.softmax(depth_logits, -1).movedim(-1, 3)           # (B, S, N, D, Hf, Wf)
     splat = lift_splat_frames(ctx.reshape(b * s, n * hf * wf, c).contiguous(),
                               dp.reshape(b * s, -1).contiguous(), ranks, ray_ids,
                               nx * ny * nz)

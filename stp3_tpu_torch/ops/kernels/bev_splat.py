@@ -91,15 +91,23 @@ def _cuda_launch_ready(*tensors: torch.Tensor) -> None:
 
 
 # ----------------------------------------------------------------- K1
+def overflow_out_of_range(ranks: torch.Tensor, ncells: int) -> torch.Tensor:
+    """int64 ranks with every rank outside [0, ncells) set to ncells, the
+    overflow row that the plain versions drop."""
+    return torch.where((ranks >= 0) & (ranks < ncells), ranks, ncells).long()
+
+
 def bev_splat_accumulate_plain(feats: torch.Tensor, ranks: torch.Tensor,
                                ncells: int) -> torch.Tensor:
     """Plain PyTorch version: (F, ncells, C) fp32 sums (float64 for float64
-    rows), via ``index_add_`` onto ncells + 1 rows whose last (overflow) row
-    is then dropped."""
+    rows), via ``index_add_`` onto ncells + 1 rows a frame whose last
+    (overflow) row is then dropped. A rank outside [0, ncells) goes to the
+    overflow row of its own frame: dropped, as the kernel drops it."""
     f, p, c = feats.shape
     dt = torch.promote_types(feats.dtype, torch.float32)
     acc = torch.zeros(f, ncells + 1, c, dtype=dt, device=feats.device)
-    idx = (ranks.long() + torch.arange(f, device=feats.device)[:, None] * (ncells + 1))
+    idx = (overflow_out_of_range(ranks, ncells)
+           + torch.arange(f, device=feats.device)[:, None] * (ncells + 1))
     acc.view(-1, c).index_add_(0, idx.reshape(-1), feats.reshape(-1, c).to(dt))
     return acc[:, :ncells]
 

@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from stp3_tpu_torch.ops.kernels.bev_splat import gather_rows
+from stp3_tpu_torch.ops.kernels.bev_splat import gather_rows, overflow_out_of_range
 from stp3_tpu_torch.ops.kernels.nvcc_build import load_library
 
 _LIB = {}
@@ -79,13 +79,19 @@ def lift_splat_accumulate_plain(ctx: torch.Tensor, depth_prob: torch.Tensor,
                                 ranks: torch.Tensor, ray_ids: torch.Tensor,
                                 ncells: int) -> torch.Tensor:
     """Plain PyTorch version: (F, ncells, C) fp32 sums (float64 for float64
-    inputs), via ``index_add_`` of dp * ctx[ray] onto ncells + 1 rows whose
-    last (overflow) row is then dropped."""
-    f, _, c = ctx.shape
+    inputs), via ``index_add_`` of dp * ctx[ray] onto ncells + 1 rows a
+    frame whose last (overflow) row is then dropped. A point whose rank is
+    outside [0, ncells) or whose ray id is outside [0, R) goes to the
+    overflow row of its own frame: dropped, as the kernel drops it."""
+    f, r, c = ctx.shape
     dt = torch.promote_types(torch.promote_types(ctx.dtype, depth_prob.dtype), torch.float32)
-    rows = ctx.to(dt)[:, ray_ids.long()] * depth_prob.to(dt)[..., None]     # (F, P, C)
+    ray_ok = (ray_ids >= 0) & (ray_ids < r)
+    rays = torch.where(ray_ok, ray_ids, 0).long()
+    rows = ctx.to(dt)[:, rays] * depth_prob.to(dt)[..., None]               # (F, P, C)
     acc = torch.zeros(f, ncells + 1, c, dtype=dt, device=ctx.device)
-    idx = ranks.long() + torch.arange(f, device=ctx.device)[:, None] * (ncells + 1)
+    ranks = torch.where(ray_ok, ranks, ncells)
+    idx = (overflow_out_of_range(ranks, ncells)
+           + torch.arange(f, device=ctx.device)[:, None] * (ncells + 1))
     acc.view(-1, c).index_add_(0, idx.reshape(-1), rows.reshape(-1, c))
     return acc[:, :ncells]
 

@@ -7,6 +7,17 @@ frame) -> forward with bf16 copies of the fp32 master parameters (under
 weighting -> the planner's loss on GT occupancy -> backward -> clip the
 global gradient norm -> Adam with L2 weight decay.
 
+Any stage YAML trains: the loss set follows the config (Perception:
+segmentation, pedestrian and HD map; no instance, flow or planning
+terms), and the labels are warped the same way at N_FUTURE_FRAMES 0.
+Under MODEL.NORM 'bn' the model runs in training mode, so every 'bn'
+site normalises with its batch's statistics and moves its running
+statistics once a step: the forward's sites in the forward (not again in
+REMAT's recomputation), the planner's in the planner's call.
+``eval_forward`` runs the model in eval mode, on the running statistics.
+'bn_frozen''s statistics are buffers, which neither the optimizer, the
+weight decay nor the clip sees (the JAX trainer's ``optax.masked``).
+
 The optimizer is ``torch.nn.utils.clip_grad_norm_`` followed by
 ``torch.optim.Adam(weight_decay=...)``: the decay is added to the
 gradient before the moments, and Adam puts ``eps`` outside the square
@@ -131,9 +142,7 @@ class Trainer:
             occ_ped = labels.get('pedestrian', torch.zeros_like(labels['segmentation']))
             occupancy = torch.logical_or(labels['segmentation'][:, rf:],
                                          occ_ped[:, rf:]).float()
-            planner_params = {k[len('planner.'):]: v for k, v in params_c.items()
-                              if k.startswith('planner.')}
-            pl_loss, _ = functional_call(model.planner, planner_params, (
+            pl_loss, _ = functional_call(model.planner, _planner_params(params_c), (
                 output['cam_front'].detach().to(self.compute_dtype),
                 batch['sample_trajectory'][:, :, 1:],
                 labels['gt_trajectory'][:, 1:],
@@ -146,9 +155,10 @@ class Trainer:
         return loss
 
     def loss_fn(self, batch, noise=None, dropout: bool = True):
-        """(total, loss dict) for a batch of device tensors. ``noise`` (B, 1,
-        L) replaces the GAUSSIAN draw and ``dropout=False`` turns the masks
-        off, for tests that hold this step to another implementation."""
+        """(total, loss dict) for a batch of device tensors. ``noise`` (of
+        ``STP3.noise_shape``) replaces the latent draw and ``dropout=False``
+        turns the masks off, for tests that hold this step to another
+        implementation."""
         labels = self.prepare_future_labels(batch)
         params_c = cast_parameters(self.model, self.compute_dtype)
         image = prepare_image(batch['image'], self.compute_dtype)
@@ -156,8 +166,8 @@ class Trainer:
             self.model, params_c,
             (image, batch['intrinsics'], batch['extrinsics'], batch['future_egomotion']),
             {'train': True, 'generator': self.generator, 'noise': noise, 'dropout': dropout})
-        output = {k: v.to(self.loss_dtype) if v is not None and v.is_floating_point() else v
-                  for k, v in output.items()}
+        output = {k: v.to(self.loss_dtype) if isinstance(v, torch.Tensor) and
+                  v.is_floating_point() else v for k, v in output.items()}
         loss = self._compute_losses(output, labels, batch, params_c)
         return sum(loss.values()), loss
 
@@ -172,3 +182,35 @@ class Trainer:
         out = {k: v.detach() for k, v in loss.items()}
         out['total'] = total.detach()
         return out
+
+    @torch.no_grad()
+    def eval_forward(self, batch) -> Dict[str, torch.Tensor]:
+        """The model's output for a batch in eval mode (no masks, no noise,
+        'bn' on its running statistics) with the policy's parameter copies;
+        with a planner also ``final_traj``, planned on the predicted
+        occupancy (the JAX trainer's ``_val_forward_impl``)."""
+        model, rf, dt = self.model, self.rf, self.compute_dtype
+        params_c = cast_parameters(model, dt)
+        model.eval()
+        try:
+            output = functional_call(model, params_c, (
+                prepare_image(batch['image'], dt), batch['intrinsics'], batch['extrinsics'],
+                batch['future_egomotion']))
+            if self.cfg.PLANNING.ENABLED:
+                seg = output['segmentation'].argmax(-1)
+                ped = (output['pedestrian'].argmax(-1)
+                       if self.cfg.SEMANTIC_SEG.PEDESTRIAN.ENABLED else torch.zeros_like(seg))
+                _, output['final_traj'] = functional_call(
+                    model.planner, _planner_params(params_c), (
+                        output['cam_front'], batch['sample_trajectory'][:, :, 1:].to(dt),
+                        batch['gt_trajectory'][:, 1:].to(dt), output['costvolume'][:, rf:],
+                        torch.logical_or(seg, ped)[:, rf:].to(dt), output['hdmap'],
+                        batch['command'], batch['target_point'].to(dt)))
+        finally:
+            model.train()
+        return output
+
+
+def _planner_params(params_c: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The planner's entries of a model's parameter dict, in its own names."""
+    return {k[len('planner.'):]: v for k, v in params_c.items() if k.startswith('planner.')}

@@ -1,22 +1,29 @@
-"""Load a ``stp3_tpu`` (flax) param tree into a module of this package.
+"""Load a ``stp3_tpu`` (flax) param tree, and its ``batch_stats``, into a
+module of this package.
 
 Every torch module is named after its flax path, so the bridge is a
 per-leaf layout transform plus a name check: the torch parameter
 ``a.b.kernel`` takes the flax leaf ``a/b/kernel`` through its owning
 module's ``flax_leaf`` (conv HWIO -> OIHW, depthwise (kh, kw, 1, C) ->
-(C, 1, kh, kw), conv3d DHWIO -> OIDHW, Dense (I, O) -> (O, I); norms,
-biases and scalars as they are). The GRU cells are written in flax's own
-layout and need nothing more.
+(C, 1, kh, kw), conv3d DHWIO -> OIDHW, Dense (I, O) -> (O, I), transposed
+conv -> (in, out, kh, kw); norms, biases and scalars as they are). The
+GRU cells are written in flax's own layout and need nothing more.
+
+The BatchNorm kinds' running statistics are buffers (``mean``, ``var``):
+'bn_frozen''s come from the 'params' tree (flax keeps them there, as
+non-trainable params), 'bn''s from the 'batch_stats' tree.
 
 The load is strict: every flax leaf must be consumed, every torch
-parameter assigned, and a shape mismatch raises.
+parameter and statistics buffer assigned, and a shape mismatch raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from stp3_tpu_torch.layers.base import Norm
 
 
 def flatten_tree(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
@@ -31,31 +38,55 @@ def flatten_tree(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
     return flat
 
 
-def load_flax_params(module: torch.nn.Module, params: Mapping) -> torch.nn.Module:
-    """Copy ``params`` (a flax 'params' tree of numpy-convertible arrays)
-    into ``module`` in place, converting each leaf to the parameter's
-    dtype. Raises KeyError on a missing or extra leaf, ValueError on a
-    shape mismatch."""
-    flat = flatten_tree(params)
-    assigned = set()
-    missing = []
+def _leaves(module: torch.nn.Module):
+    """(flax path, owning module, leaf name, tensor, collection) of every
+    parameter and every BatchNorm statistics buffer of ``module``."""
     for mod_name, mod in module.named_modules():
+        prefix = mod_name.split('.') if mod_name else []
         for pname, p in mod.named_parameters(recurse=False):
-            path = '/'.join(mod_name.split('.') + [pname]) if mod_name else pname
-            if path not in flat:
-                missing.append(path)
-                continue
-            transform = getattr(mod, 'flax_leaf', None)
-            arr = flat[path] if transform is None else transform(pname, flat[path])
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f'{path}: flax leaf {tuple(flat[path].shape)} maps to '
-                                 f'{tuple(arr.shape)}, torch expects {tuple(p.shape)}')
-            with torch.no_grad():
-                p.copy_(torch.tensor(np.asarray(arr, np.float32), dtype=p.dtype))
-            assigned.add(path)
-    extra = sorted(set(flat) - assigned)
+            yield '/'.join(prefix + [pname]), mod, pname, p, 'params'
+        if isinstance(mod, Norm) and mod.kind in ('bn', 'bn_frozen'):
+            collection = 'batch_stats' if mod.kind == 'bn' else 'params'
+            for bname in ('mean', 'var'):
+                yield '/'.join(prefix + [bname]), mod, bname, getattr(mod, bname), collection
+
+
+def load_flax_params(module: torch.nn.Module, params: Mapping,
+                     batch_stats: Optional[Mapping] = None) -> torch.nn.Module:
+    """Copy ``params`` (a flax 'params' tree of numpy-convertible arrays)
+    and ``batch_stats`` (its 'batch_stats' tree, for a model with 'bn'
+    sites) into ``module`` in place, converting each leaf to the tensor's
+    dtype. Raises KeyError on a missing or extra leaf of either tree,
+    ValueError on a shape mismatch."""
+    flat = {'params': flatten_tree(params), 'batch_stats': flatten_tree(batch_stats or {})}
+    assigned = {'params': set(), 'batch_stats': set()}
+    missing = []
+    for path, mod, name, t, collection in _leaves(module):
+        tree = flat[collection]
+        if path not in tree:
+            missing.append(path if collection == 'params' else f'{collection}:{path}')
+            continue
+        transform = getattr(mod, 'flax_leaf', None)
+        arr = tree[path] if transform is None else transform(name, tree[path])
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f'{path}: flax leaf {tuple(tree[path].shape)} maps to '
+                             f'{tuple(arr.shape)}, torch expects {tuple(t.shape)}')
+        with torch.no_grad():
+            t.copy_(torch.tensor(np.array(arr, np.float32, order='C'), dtype=t.dtype))
+        assigned[collection].add(path)
+    extra = sorted(f'{c}:{p}' if c != 'params' else p
+                   for c in flat for p in set(flat[c]) - assigned[c])
     if missing or extra:
         raise KeyError(f'flax/torch trees differ: {len(missing)} torch params without a '
                        f'flax leaf {missing[:5]}, {len(extra)} flax leaves unused '
                        f'{extra[:5]}')
     return module
+
+
+def load_flax_variables(module: torch.nn.Module, variables: Mapping) -> torch.nn.Module:
+    """``load_flax_params`` of a flax variables dict ({'params': ...} and,
+    with 'bn' sites, 'batch_stats'); any other collection raises KeyError."""
+    unknown = set(variables) - {'params', 'batch_stats'}
+    if unknown:
+        raise KeyError(f'flax collections this package does not hold: {sorted(unknown)}')
+    return load_flax_params(module, variables['params'], variables.get('batch_stats'))

@@ -271,3 +271,97 @@ def test_lift_splat_backward_matches_plain_autograd(cuda, dtype):
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(ga.float(), wa.float(), **tol)
     torch.testing.assert_close(gb.float(), wb.float(), **tol)
+
+
+def _out_of_range_ranks(f, p, ncells, gen):
+    """Ranks over [-3, ncells + 3): about a tenth of them outside [0, ncells)."""
+    return torch.randint(-3, ncells + 3, (f, p), generator=gen, dtype=torch.int32)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('entry', ['bev_splat', 'bev_pool_v1', 'bev_pool_v2'])
+def test_k1_drops_out_of_range_ranks_as_plain(cuda, entry, dtype):
+    """K1 and its per-frame entries against the plain version on ranks
+    below 0 and at or above ncells, which both drop."""
+    gen = torch.Generator().manual_seed(21)
+    f, p, c, ncells = (3 if entry == 'bev_splat' else 1), 4096 + 77, 64, 61
+    feats = torch.randn(f, p, c, generator=gen).to(cuda, dtype)
+    ranks = _out_of_range_ranks(f, p, ncells, gen).to(cuda)
+    want = K1.bev_splat_accumulate_plain(feats, ranks, ncells)
+    if entry == 'bev_splat':
+        got = K1.bev_splat_accumulate(feats, ranks, ncells)
+    else:
+        got = getattr(K1, entry)(feats[0], ranks[0], ncells)[None].float()
+        want = want.to(dtype).float()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_k4_drops_out_of_range_ranks_and_ray_ids_as_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(22)
+    f, r, p, c, ncells = 2, 300, 4096 + 77, 64, 61
+    ctx = torch.randn(f, r, c, generator=gen).to(cuda, dtype)
+    dp = torch.rand(f, p, generator=gen).to(cuda, dtype)
+    ranks = _out_of_range_ranks(f, p, ncells, gen).to(cuda)
+    rays = torch.randint(-5, r + 5, (p,), generator=gen, dtype=torch.int32).to(cuda)
+    got = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    want = K4.lift_splat_accumulate_plain(ctx, dp, ranks, rays, ncells)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize('f,p', [(9, 483840), (18, 196608)])
+def test_k1_and_k3_at_the_perception_shapes_match_plain(cuda, f, p):
+    """K1 and its backward K3 at the Perception train steps' splats:
+    nuScenes at batch 3 (F = 9 frames of 483,840 points) and CARLA at
+    batch 6 (F = 18 of 196,608), 64 bf16 channels onto 200 x 200 cells,
+    about half the points outside the grid (rank ncells)."""
+    gen = torch.Generator().manual_seed(f)
+    c, ncells = 64, 40000
+    feats = torch.randn(f, p, c, generator=gen).to(cuda, torch.bfloat16)
+    ranks = torch.randint(0, 2 * ncells, (f, p), generator=gen, dtype=torch.int32)
+    ranks = torch.where(ranks < ncells, ranks, ncells).to(cuda)
+    got = K1.bev_splat_accumulate(feats, ranks, ncells)
+    want = K1.bev_splat_accumulate_plain(feats, ranks, ncells)
+    table = torch.randn(f, ncells, c, generator=gen).to(cuda, torch.bfloat16)
+    rows = K1.gather_rows(table, ranks)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert torch.equal(rows, K1.gather_rows_plain(table, ranks))
+
+
+@pytest.mark.parametrize('kind', ['bn', 'bn_frozen'])
+def test_batch_norm_model_on_the_card_matches_the_cpu(cuda, kind):
+    """The tiny Perception model under MODEL.NORM 'bn' / 'bn_frozen' in
+    fp32 (TF32 off), the same seeded weights on both devices: the
+    train-mode forward (batch statistics; 'bn' moves its running
+    statistics once) and then the eval forward on the running statistics,
+    every head at atol 2e-3, rtol 1e-3, the running statistics at rtol
+    1e-4, atol 1e-5."""
+    import copy
+
+    import chip_smoke
+    from stp3_tpu_torch.layers.base import init_parameters
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.utils.precision import pin_fp32_math
+    pin_fp32_math()
+    cfg = chip_smoke.stage_cfg('perception', True, {'MODEL': {'NORM': kind}})
+    cpu = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    inputs = chip_smoke.example_inputs(cfg, b=2)[0]
+    outs = {}
+    for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, cuda)):
+        args = [torch.as_tensor(a, device=dev) for a in inputs]
+        with torch.no_grad():
+            model.train()
+            trained = model(*args, train=True, dropout=False)
+            model.eval()
+            evaluated = model(*args)
+        outs[name] = (trained, evaluated, {n: b.cpu() for n, b in model.named_buffers()
+                                           if n.endswith(('.mean', '.var'))})
+    for want, got in zip(outs['cpu'][:2], outs['cuda'][:2]):
+        for key in ('segmentation', 'pedestrian', 'hdmap'):
+            torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-3, rtol=1e-3)
+    for name, want in outs['cpu'][2].items():
+        torch.testing.assert_close(outs['cuda'][2][name], want, rtol=1e-4, atol=1e-5)

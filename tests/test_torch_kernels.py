@@ -468,3 +468,53 @@ def test_no_module_of_the_port_nor_chip_smoke_imports_the_jax_side():
     bad = {os.path.relpath(p, REPO): name for p in paths for name in _imports(p)
            if name.split('.')[0] in _FOREIGN}
     assert not bad, bad
+
+
+# ------------------------------------------------ out-of-range ranks
+def _out_of_range_case(dtype=torch.float32):
+    """F=2, ncells=3, C=4: frame 0 holds four points in range and three
+    out of range (ranks -1, 3 and 5); frame 1 holds two in range. The
+    expected sums count the in-range points only."""
+    gen = torch.Generator().manual_seed(11)
+    ranks = torch.tensor([[0, -1, 2, 3, 5, 2, 1], [1, 3, 3, 0, 3, 3, 2]], dtype=torch.int32)
+    feats = torch.randn(2, 7, 4, generator=gen).to(dtype)
+    want = torch.zeros(2, 3, 4, dtype=torch.float64)
+    for f in range(2):
+        for p in range(7):
+            if 0 <= ranks[f, p] < 3:
+                want[f, ranks[f, p]] += feats[f, p].double()
+    return feats, ranks, want
+
+
+def test_plain_splats_drop_out_of_range_ranks():
+    """A rank outside [0, ncells) adds nothing anywhere, as the kernels and
+    JAX's segment_sum drop it: K1 and the XLA paths' segment sum. Frame 1
+    equals its own points' sums (nothing of frame 0 spills into it)."""
+    from stp3_tpu_torch.ops.bev_pool import _segment_sum
+    feats, ranks, want = _out_of_range_case()
+    for got in (K1.bev_splat_accumulate(feats, ranks, 3), K1.bev_splat_plain(feats, ranks, 3),
+                _segment_sum(feats, ranks, 3, sort=True),
+                _segment_sum(feats, ranks, 3, sort=False)):
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
+    # the per-frame entries (F=1) on frame 0 alone
+    for entry in (K1.bev_pool_v1, K1.bev_pool_v2):
+        torch.testing.assert_close(entry(feats[0], ranks[0], 3).double(), want[0],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_plain_lift_splat_drops_out_of_range_ranks_and_ray_ids():
+    """K4's plain version: a point whose rank is outside [0, ncells) or
+    whose ray id is outside [0, R) is dropped (ray ids -1 and R here)."""
+    gen = torch.Generator().manual_seed(12)
+    f, r, c, ncells = 2, 4, 5, 3
+    ctx = torch.randn(f, r, c, generator=gen)
+    ranks = torch.tensor([[0, -1, 2, 3, 5, 2, 1, 1], [1, 3, 3, 0, 3, 2, 2, 0]], dtype=torch.int32)
+    rays = torch.tensor([0, 1, 3, 2, 1, -1, 4, 2], dtype=torch.int32)
+    dp = torch.rand(f, 8, generator=gen)
+    want = torch.zeros(f, ncells, c, dtype=torch.float64)
+    for fi in range(f):
+        for p in range(8):
+            if 0 <= ranks[fi, p] < ncells and 0 <= rays[p] < r:
+                want[fi, ranks[fi, p]] += dp[fi, p].double() * ctx[fi, rays[p]].double()
+    got = K4.lift_splat_accumulate(ctx, dp, ranks, rays, ncells)
+    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
