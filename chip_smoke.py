@@ -74,7 +74,28 @@ Phases, each printing one line (or a few) before the last:
      second update in the recomputation would not); then the step's p50
      and peak memory, and an eval forward on the running statistics;
  15. [bn_frozen]: the flagship forward + plan under MODEL.NORM
-     'bn_frozen', bf16: launches and p50 of 20 steps.
+     'bn_frozen', bf16: launches and p50 of 20 steps;
+ 16. [train_cli]: stp3_tpu_torch.train.run on the full-width Planning
+     stage (batch 2, bf16, REMAT 'encoder') over synthetic 'mini' data:
+     one epoch (5 train steps, validation on 4 samples, a checkpoint),
+     then a resume for a second epoch whose step, Adam step and best IoU
+     continue from the saved ones; launches per epoch (K1 and K3 once a
+     train step, K1 once a val forward, K2 twice each), train and val
+     step p50, checkpoint bytes, save and load ms;
+ 17. [evaluate_planning]: stp3_tpu_torch.evaluate.evaluate on that
+     checkpoint at batch 1 (4 samples: K1 once, K2 twice a sample): every
+     result key finite and in its range, samples/s;
+ 18. [evaluate_prediction]: the same on a checkpoint of the
+     Prediction.yml stage at full width (GAUSSIAN, instance and flow
+     heads, 4 future frames), the panoptic metrics through the device
+     decode; K2 at its rows is held against its plain version with the
+     kernel phases above;
+ 19. [decode]: that stage's validation output at full width: the device
+     decode (utils/instance_jit.py) equal to the host loop id for id;
+     both timed, and the Hungarian linking;
+ 20. [labels as prediction]: the labels fed back as the prediction, at
+     full width: IoU = PQ = SQ = RQ = 1 for every present class, L2 = 0,
+     no collision.
 With --profile, torch.profiler windows of 3 calls (device events, summed
 device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
@@ -198,12 +219,20 @@ PREDICTION_BER = {
     'PLANNING': {'ENABLED': False}, 'FUTURE_DISCOUNT': 0.95, 'OPTIMIZER': {'LR': 2e-4},
     'PRETRAINED': {'LOAD_WEIGHTS': True},
 }
+# stp3_tpu/configs/nuscenes/Prediction.yml, as code: stage 2 (GAUSSIAN latent,
+# instance and flow heads, no planner)
+PREDICTION_STAGE = {**PREDICTION_BER, 'TAG': 'Prediction',
+                    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'GAUSSIAN'}}
+# the synthetic data of the train / evaluate CLI paths: 10 training samples
+# (5 steps at batch 2) and 4 validation samples, one epoch a run
+CLI_DATA = {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini', 'VAL_SAMPLES': 4},
+            'EPOCHS': 1, 'LOGGING_INTERVAL': 1}
 # the tiny widths over a stage's own depth (its receptive field, future
 # frames and switches), fp32
 TINY_WIDTHS = {k: v for k, v in TINY.items()
                if k not in ('TIME_RECEPTIVE_FIELD', 'N_FUTURE_FRAMES')}
 STAGES = {'perception': PERCEPTION_STAGE, 'carla_perception': CARLA_PERCEPTION,
-          'prediction_ber': PREDICTION_BER}
+          'prediction_ber': PREDICTION_BER, 'prediction': PREDICTION_STAGE}
 
 
 def make_cfg(*overrides):
@@ -257,7 +286,8 @@ KERNELS = (
      'stp3_tpu/ops/pallas/bev_pool_kernel.py:418', 'fused'),
 )
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
-         'perception_bn', 'prediction_ber', 'bn_frozen')
+         'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
+         'evaluate_prediction')
 
 
 def counters():
@@ -1540,7 +1570,7 @@ def phase_perception_bn(cfg, device, card):
                                              bev_splat=1, gather_rows=1)
     if '--profile' in sys.argv[1:]:
         profile_train(trainer, batches, card, tag='perception bn')
-    out = trainer.eval_forward(batches[0])
+    out, _ = trainer.val_forward(batches[0])
     for key in ('segmentation', 'pedestrian', 'hdmap'):
         if not torch.isfinite(out[key].float()).all():
             fail(f'[perception bn] eval forward on running statistics: {key} not finite')
@@ -1584,6 +1614,269 @@ def profile_train(trainer, batches, card, steps: int = 3, tag: str = 'train'):
                    top=15)
 
 
+def finite_dict(d) -> bool:
+    """Every value of a (nested) dict of arrays, tensors or numbers finite."""
+    import torch
+    for v in d.values():
+        if isinstance(v, dict):
+            if not finite_dict(v):
+                return False
+        elif isinstance(v, torch.Tensor):
+            if not torch.isfinite(v.float()).all():
+                return False
+        elif not np.isfinite(np.asarray(v, np.float64)).all():
+            return False
+    return True
+
+
+def phase_train_cli(device, card, repo: str):
+    """[train_cli]: ``stp3_tpu_torch.train.run`` on the full-width Planning
+    stage (batch 2, bf16 policy, REMAT 'encoder') over synthetic 'mini'
+    data: one epoch of 5 train steps, validation on 4 samples (2 val
+    forwards) and a checkpoint; then a resume from that checkpoint for a
+    second epoch, whose step, Adam step and best IoU must continue from
+    the saved ones. Launches per epoch: K1 once a train step and once a
+    val forward, K3 once a train step, K2 twice each. Returns (the last
+    checkpoint, the launches of the first epoch)."""
+    import shutil
+    import torch
+    from stp3_tpu_torch.train import run
+    from stp3_tpu_torch.training import checkpoint as ckpt_lib
+    cfg = make_cfg(PLANNING_STAGE, CLI_DATA)
+    save_dir = os.path.join(repo, 'build', 'chip_smoke', 'train_cli')
+    shutil.rmtree(save_dir, ignore_errors=True)
+    b = int(cfg.BATCHSIZE)
+    steps, vals = 10 // b, -(-int(cfg.DATASET.VAL_SAMPLES) // b)
+    want = dict(bev_splat=steps + vals, gather_rows=steps, convnext_mlp=2 * (steps + vals))
+
+    def log(msg):
+        say(f'[train_cli] {msg}')
+
+    reset_launches()
+    first = run(cfg, device, save_dir, log=log)
+    launches = read_launches()
+    expect_launches(f'[train_cli] epoch 1 ({steps} train steps, {vals} val forwards)',
+                    launches, **want)
+    say(f'[train_cli] launches in epoch 1: {launches}')
+    resume = cfg.clone()
+    resume.EPOCHS = 2
+    resume.CHECKPOINT.RESUME = first['last']
+    reset_launches()
+    second = run(resume, device, save_dir, log=log)
+    expect_launches('[train_cli] the resumed epoch 2', read_launches(), **want)
+    state = ckpt_lib.load_checkpoint(second['last'])
+    adam = {int(s['step']) for s in state['optimizer']['state'].values()}
+    meta = ckpt_lib.load_meta(second['last'])
+    if (first['step'] != steps or second['start_step'] != steps or second['step'] != 2 * steps
+            or state['step'] != 2 * steps or adam != {2 * steps}):
+        fail(f'[train_cli] resume: steps {first["step"]} -> {second["start_step"]} -> '
+             f'{second["step"]}, checkpoint step {state["step"]}, Adam steps {adam}')
+    if (second['start_best_iou'] != first['best_iou'] or second['best_iou'] < first['best_iou']
+            or meta['metrics']['best_iou'] != second['best_iou']):
+        fail(f'[train_cli] resume: best IoU {first["best_iou"]} -> {second["start_best_iou"]} '
+             f'-> {second["best_iou"]} (meta {meta["metrics"]})')
+    for rec in (first, second):
+        if not finite_dict(rec['loss']) or not finite_dict(rec['metrics']):
+            fail('[train_cli] a loss term or a validation metric is not finite')
+    say(f'[train_cli] resumed at step {second["start_step"]} with best IoU '
+        f'{second["start_best_iou"]:.4f}; ended at step {second["step"]} (Adam step {adam}), '
+        f'best IoU {second["best_iou"]:.4f}; format_version {meta["format_version"]}')
+
+    path = os.path.join(second['last'], 'state.pt')
+    t0 = time.perf_counter()
+    loaded = ckpt_lib.load_checkpoint(second['last'], map_location=device)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    probe = ckpt_lib.save_checkpoint(os.path.join(save_dir, 'save_probe'), loaded['step'],
+                                     loaded['model'], loaded['optimizer'], None,
+                                     loaded['generator'])
+    save_ms = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(a, loaded['model'][k].cpu()) for k, a in
+               ckpt_lib.load_checkpoint(probe)['model'].items())
+    if not same:
+        fail('[train_cli] a checkpoint saved from the card does not read back bit for bit')
+    train_ms, val_ms = first['train_ms'] + second['train_ms'], first['val_ms'] + second['val_ms']
+    say(f'[train_cli] train step p50 {np.median(train_ms):.2f} ms (median of {len(train_ms)}, '
+        f'CUDA events; spread {min(train_ms):.2f}-{max(train_ms):.2f}), '
+        f'{b / np.median(train_ms) * 1e3:.3f} samples/s; val step (batch {b}) p50 '
+        f'{np.median(val_ms):.2f} ms (median of {len(val_ms)}; spread {min(val_ms):.2f}-'
+        f'{max(val_ms):.2f}); checkpoint {os.path.getsize(path)} B, load {load_ms:.1f} ms '
+        f'(to the card), save {save_ms:.1f} ms (from the card); on {card}')
+    return second['last'], launches
+
+
+def prediction_checkpoint(device, repo: str) -> str:
+    """A checkpoint of the Prediction stage's seeded init (step 0) with the
+    CLI data config, for [evaluate_prediction]."""
+    import shutil
+    from stp3_tpu_torch.training import checkpoint as ckpt_lib
+    from stp3_tpu_torch.training.trainer import Trainer
+    cfg = make_cfg(PREDICTION_STAGE, CLI_DATA)
+    ckpt_dir = os.path.join(repo, 'build', 'chip_smoke', 'prediction', 'checkpoints')
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    os.makedirs(ckpt_dir)
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    say(f'[evaluate_prediction] {cfg.TAG}: {sum(p.numel() for p in trainer.model.parameters())} '
+        f'parameters, seeded init saved as step 0')
+    return ckpt_lib.save_checkpoint(ckpt_dir, 0, trainer.model.state_dict(),
+                                    cfg_dict=cfg.convert_to_dict())
+
+
+def result_in_range(key: str, value: float) -> bool:
+    if key.startswith('plan_L2'):
+        return value >= 0
+    return 0.0 <= value <= 1.0          # IoU, PQ / SQ / RQ, collision rates
+
+
+def phase_evaluate(path: str, ckpt: str, device, card, keys) -> dict:
+    """[evaluate_*]: ``stp3_tpu_torch.evaluate.evaluate`` on a checkpoint at
+    batch 1 over the 4 validation samples: K1 once and K2 twice a sample;
+    the result ``keys`` exactly, each finite and in its range. Returns the
+    launches."""
+    from stp3_tpu_torch.evaluate import evaluate
+    stats = {}
+    reset_launches()
+    results = evaluate(ckpt, device, log=lambda msg: say(f'[{path}] {msg}'), stats=stats)
+    launches = read_launches()
+    n = stats['samples']
+    expect_launches(f'[{path}] {n} samples', launches, bev_splat=n, convnext_mlp=2 * n)
+    if sorted(results) != sorted(keys):
+        fail(f'[{path}] result keys {sorted(results)}, expected {sorted(keys)}')
+    bad = {k: v for k, v in results.items() if not (np.isfinite(v) and result_in_range(k, v))}
+    if bad:
+        fail(f'[{path}] results not finite or out of range: {bad}')
+    say(f'[{path}] launches {launches}; {n} samples at batch 1 in {stats["seconds"]:.2f} s: '
+        f'{n / stats["seconds"]:.3f} samples/s (metrics and host work included), forward to '
+        f'the first result p50 {np.median(stats["forward_ms"]):.2f} ms; on {card}')
+    return launches
+
+
+def planning_result_keys(cfg) -> list:
+    keys = ['vehicle_iou', 'pedestrian_iou'] + [
+        f'{e}_iou' for e in cfg.SEMANTIC_SEG.HDMAP.ELEMENTS]
+    return keys + [f'plan_{m}_{s + 1}s' for m in ('L2', 'obj_col', 'obj_box_col')
+                   for s in range(cfg.N_FUTURE_FRAMES // 2)]
+
+
+def wall_ms(fn, reps: int) -> float:
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def eval_split(trainer, batch, tag: str, card) -> None:
+    """Where a batch-1 evaluation forward's time goes with no loader
+    threads beside it: ``val_forward`` (labels, the parameters' cast to
+    the compute dtype, the forward and plan, the fp32 cast), its labels
+    alone and the cast alone; wall clock, median of 5 (--profile: a
+    torch.profiler window of 3 ``val_forward``)."""
+    import torch
+    from stp3_tpu_torch.utils.precision import cast_parameters
+    full = wall_ms(lambda: trainer.val_forward(batch), 5)
+    with torch.no_grad():
+        labels = wall_ms(lambda: trainer.prepare_future_labels(batch), 5)
+        cast = wall_ms(lambda: cast_parameters(trainer.model, trainer.compute_dtype), 5)
+    say(f'[{tag}] val_forward at batch 1 alone {full:.2f} ms, of which labels {labels:.2f} ms '
+        f'and the parameters\' cast to {trainer.compute_dtype} {cast:.2f} ms (wall clock, '
+        f'median of 5); on {card}')
+    if '--profile' in sys.argv[1:]:
+        profile_window(lambda i: trainer.val_forward(batch), f'{tag} val_forward', card)
+
+
+def phase_decode(ckpt: str, device, card):
+    """[decode]: the Prediction stage's validation output at full width and
+    batch 1 (the checkpoint's weights): the device decode
+    (utils/instance_jit.py) against the host loop, id for id; both timed,
+    and the Hungarian linking. Returns (trainer, its synthetic batch)."""
+    from stp3_tpu_torch.evaluate import eval_cfg
+    from stp3_tpu_torch.training import checkpoint as ckpt_lib
+    from stp3_tpu_torch.training.trainer import Trainer
+    from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
+    cfg = eval_cfg(ckpt)
+    trainer = Trainer(cfg, device=device)
+    trainer.model.load_state_dict(ckpt_lib.load_checkpoint(ckpt, map_location=device)['model'])
+    batch, = synthetic_batches(cfg, 1, device)
+    output, _ = trainer.val_forward(batch)
+
+    def decode(jit_decode, consistent=False):
+        return predict_instance_segmentation_and_trajectories(
+            output, make_consistent=consistent, jit_decode=jit_decode)
+
+    on_device, on_host = decode(True), decode(False)
+    if on_device.shape != on_host.shape or not np.array_equal(on_device, on_host):
+        fail(f'[decode] device decode differs from the host loop at '
+             f'{np.count_nonzero(on_device != on_host)} of {on_host.size} pixels')
+    per_frame = [int(f.max()) for f in on_device.reshape(-1, *on_device.shape[-2:])]
+    dev_ms, host_ms = wall_ms(lambda: decode(True), 5), wall_ms(lambda: decode(False), 3)
+    linked_ms = wall_ms(lambda: decode(True, True), 3)
+    say(f'[decode] Prediction stage, {tuple(output["instance_center"].shape)} centers: the device '
+        f'decode equals the host loop id for id (instances per frame {per_frame}); device '
+        f'decode {dev_ms:.2f} ms (ids to the host included), host loop {host_ms:.2f} ms, device '
+        f'decode + Hungarian linking {linked_ms:.2f} ms (wall clock, median); on {card}')
+    eval_split(trainer, batch, 'decode', card)
+    return trainer, batch
+
+
+def phase_labels_as_prediction(pred_trainer, pred_batch, device, card):
+    """[labels as prediction]: the metrics at full width on the labels fed
+    back as the prediction, which needs no trained weights: the Planning
+    stage's label classes into IoUMetric (vehicle, pedestrian, each HD-map
+    element), its GT trajectory into PlanningMetric per second of
+    horizon, and the Prediction stage's label instance ids into
+    PanopticMetric. Every present class's IoU, PQ, SQ and RQ must be 1,
+    with no false positive or negative; L2 0 and no collision. First the
+    Planning stage's ``eval_split``."""
+    import torch
+    from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
+    from stp3_tpu_torch.training.trainer import Trainer
+    cfg = make_cfg(PLANNING_STAGE, CLI_DATA)
+    trainer = Trainer(cfg, device=device, seed=SEED)
+    batch, = synthetic_batches(cfg, 1, device)
+    eval_split(trainer, batch, 'labels as prediction', card)
+    labels = trainer.prepare_future_labels(batch)
+    rf = cfg.TIME_RECEPTIVE_FIELD
+    ious = {}
+    for name, lab in (('vehicle', labels['segmentation'][:, rf - 1:]),
+                      ('pedestrian', labels['pedestrian'][:, rf - 1:]),
+                      *((e, labels['hdmap'][..., i])
+                        for i, e in enumerate(cfg.SEMANTIC_SEG.HDMAP.ELEMENTS))):
+        metric = IoUMetric(2)
+        metric.update(lab, lab)
+        score, st = metric.compute(), metric.state
+        present = st['support'] > 0
+        if st['fp'].any() or st['fn'].any() or not (score[present] == 1.0).all():
+            fail(f'[labels as prediction] IoU {name}: {score}, state {st}')
+        ious[name] = score.tolist()
+    occupancy = torch.logical_or(labels['segmentation'][:, rf:], labels['pedestrian'][:, rf:])
+    gt = labels['gt_trajectory']
+    plan = {}
+    for i in range(cfg.N_FUTURE_FRAMES // 2):
+        t = 2 * (i + 1)
+        metric = PlanningMetric(cfg, t)
+        metric.update(gt[:, 1:t + 1], gt[:, 1:t + 1], occupancy[:, :t])
+        res = metric.compute()
+        if res['L2'].any() or res['obj_col'].any() or res['obj_box_col'].any():
+            fail(f'[labels as prediction] planning {t} frames: {res}')
+        plan[f'{i + 1}s'] = {k: float(v.mean()) for k, v in res.items()}
+    inst = pred_trainer.prepare_future_labels(pred_batch)['instance'][:, pred_trainer.rf - 1:]
+    pan = PanopticMetric(2)
+    pan.update(inst, inst)
+    res = pan.compute()
+    if (pan.state['false_positive'].any() or pan.state['false_negative'].any()
+            or not all(res[k][1] == 1.0 for k in ('pq', 'sq', 'rq'))):
+        fail(f'[labels as prediction] panoptic {res}, state {pan.state}')
+    say(f'[labels as prediction] IoU {ious}; planning {plan}; panoptic '
+        f'{ {k: v.tolist() for k, v in res.items()} } over '
+        f'{int(pan.state["true_positive"][1])} vehicle instances; no false positive or negative')
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1625,6 +1918,16 @@ def main() -> None:
         report['gather_rows'][path] = phase_k3(stage, device, path)
     report['convnext_mlp']['prediction_ber'] = phase_k2(
         stages['prediction_ber'], device, 'prediction_ber', int(stages['prediction_ber'].BATCHSIZE))
+    # the CLI paths: training and its val forwards at the training shapes, the
+    # evaluations at batch 1 (K1 at the serving splat of the same rig; K2 at
+    # the Prediction stage's own rows)
+    for name in ('bev_splat', 'convnext_mlp', 'gather_rows'):
+        report[name]['train_cli'] = report[name]['train']
+    for name in ('bev_splat', 'convnext_mlp'):
+        report[name]['evaluate_planning'] = report[name]['serving']
+    report['bev_splat']['evaluate_prediction'] = report['bev_splat']['serving']
+    report['convnext_mlp']['evaluate_prediction'] = phase_k2(
+        stage_cfg('prediction'), device, 'evaluate_prediction', 1)
     phase_backward(train_cfg, device)
     per_frame, launches = phase_per_frame(cfg, device)
     launches = {'per_frame': launches}
@@ -1658,6 +1961,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches['bn_frozen'] = phase_flagship(make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}),
                                            device, card, tag='bn_frozen')
+    ckpt, launches['train_cli'] = phase_train_cli(device, card, repo)
+    launches['evaluate_planning'] = phase_evaluate('evaluate_planning', ckpt, device, card,
+                                                   planning_result_keys(train_cfg))
+    pred_ckpt = prediction_checkpoint(device, repo)
+    launches['evaluate_prediction'] = phase_evaluate(
+        'evaluate_prediction', pred_ckpt, device, card,
+        ['vehicle_iou', 'vehicle_pq', 'vehicle_sq', 'vehicle_rq'])
+    phase_labels_as_prediction(*phase_decode(pred_ckpt, device, card), device, card)
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')
     for name, *_, main_path in KERNELS:

@@ -1,7 +1,9 @@
-"""Synthetic dataset emitting the canonical batch contract (the port's own
-copy of stp3_tpu/datas/synthetic.py's ``SyntheticDataset`` and
-``collate``: numpy only, the same RNG draws in the same order, so one
-seed gives the same batch byte for byte in either package).
+"""Synthetic dataset emitting the canonical batch contract, and the
+batching loader (the port's own copy of stp3_tpu/datas/synthetic.py's
+``SyntheticDataset``, ``collate`` and ``NumpyLoader``: numpy only, the
+same RNG draws in the same order, so one seed gives the same batch byte
+for byte in either package, and the same index order and ``valid``
+masks).
 
 Per sample, channels-last:
 
@@ -28,7 +30,7 @@ the motion, so the losses behave as on real data.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import numpy as np
 
@@ -200,3 +202,147 @@ class SyntheticDataset:
 
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+# the dataset of a process-pool worker (pickled in once by the pool's initializer)
+_WORKER_DATASET = None
+
+
+def _worker_init(dataset):
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _load_worker_sample(idx: int):
+    return _WORKER_DATASET[idx]
+
+
+class NumpyLoader:
+    """Batching iterator over an indexable dataset, on the host.
+
+    ``num_workers > 0`` loads the samples of ``prefetch`` batches ahead in
+    a pool: threads by default (no IPC; right when a sample's work
+    releases the GIL or is cheap, as the synthetic set's is), or spawned
+    processes (``use_processes``), each holding one pickled copy of the
+    dataset. Batches come out in order.
+
+    ``rank`` / ``world``: the split of a multi-process run (torch's
+    DistributedSampler): ``batch_size`` is per process, each epoch's index
+    list is cut into global batches of ``batch_size * world`` rows, and
+    process ``rank`` takes the rank-th contiguous ``batch_size`` rows of
+    each, so every process yields as many batches. Without ``drop_last``
+    a ragged tail is padded with wrap-around duplicates, and
+    ``with_valid_mask`` adds a per-row bool ``valid`` key that is False
+    on them, for ``Trainer.val_step`` to leave out.
+
+    Its owner calls ``close()``, which stops the pool: a process pool with
+    ``close()`` and ``join()``, letting its workers finish what was handed
+    to them (``Pool.terminate()`` is the suspect of a hang in the JAX
+    package's tests)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = True, seed: int = 0, num_workers: int = 4,
+                 prefetch: int = 2, use_processes: bool = False, rank: int = 0,
+                 world: int = 1, with_valid_mask: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.use_processes = use_processes
+        self.rank = rank
+        self.world = world
+        self.with_valid_mask = with_valid_mask
+        self._pool = None
+
+    def _get_pool(self):
+        if self._pool is None:
+            if self.use_processes:
+                import multiprocessing as mp
+                self._pool = mp.get_context('spawn').Pool(
+                    self.num_workers, initializer=_worker_init, initargs=(self.dataset,))
+            else:
+                from concurrent.futures import ThreadPoolExecutor
+                self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        return self._pool
+
+    def close(self):
+        pool, self._pool = self._pool, None
+        if pool is None:
+            return
+        if self.use_processes:
+            pool.close()
+            pool.join()
+        else:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def __len__(self) -> int:
+        n, gb = len(self.dataset), self.batch_size * self.world
+        return n // gb if self.drop_last else -(-n // gb)
+
+    def _batches(self):
+        """(index chunks, per-row validity masks) of the next epoch. A row
+        is invalid iff it is a wrap-around padding duplicate."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        self.epoch += 1
+        if self.world > 1:
+            gb = self.batch_size * self.world
+            if self.drop_last:
+                idx = idx[:len(idx) // gb * gb]
+            n_real = len(idx)
+            pad = 0 if self.drop_last else (-len(idx)) % gb
+            if pad:
+                reps = -(-pad // max(len(idx), 1))
+                idx = np.concatenate([idx, np.tile(idx, reps)[:pad]])
+            lo = self.rank * self.batch_size
+            chunks, masks = [], []
+            for i in range(0, len(idx), gb):
+                chunks.append(idx[i + lo:i + lo + self.batch_size])
+                masks.append(np.arange(i + lo, i + lo + self.batch_size) < n_real)
+            return chunks, masks
+        end = len(idx) // self.batch_size * self.batch_size if self.drop_last else len(idx)
+        chunks = [idx[i:i + self.batch_size] for i in range(0, end, self.batch_size)]
+        return chunks, [np.ones(len(c), bool) for c in chunks]
+
+    def _finish(self, samples, mask):
+        batch = collate(samples)
+        if self.with_valid_mask:
+            batch['valid'] = mask
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches, masks = self._batches()
+        if self.num_workers <= 0:
+            for chunk, mask in zip(batches, masks):
+                yield self._finish([self.dataset[int(j)] for j in chunk], mask)
+            return
+        pool = self._get_pool()
+        if self.use_processes:
+            def submit(chunk):
+                return [pool.apply_async(_load_worker_sample, (int(j),)) for j in chunk]
+
+            def result(handle):
+                return handle.get()
+        else:
+            def submit(chunk):
+                return [pool.submit(self.dataset.__getitem__, int(j)) for j in chunk]
+
+            def result(handle):
+                return handle.result()
+        # one handle a sample, ``prefetch`` batches in flight (at least one)
+        pending, it = [], iter(zip(batches, masks))
+        for chunk, mask in it:
+            pending.append((submit(chunk), mask))
+            if len(pending) >= max(self.prefetch, 1):
+                break
+        while pending:
+            handles, mask = pending.pop(0)
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append((submit(nxt[0]), nxt[1]))
+            yield self._finish([result(h) for h in handles], mask)

@@ -25,6 +25,21 @@ def calculate_birds_eye_view_parameters(x_bounds, y_bounds, z_bounds):
     return resolution, start_position, dimension
 
 
+def ego_footprint_grid_pts(ego_width: float, ego_height: float, bx, dx) -> np.ndarray:
+    """Ego-vehicle footprint corners in BEV grid coordinates, (4, 2)
+    float64, axes swapped to (col, row) raster order: a +0.5 m
+    longitudinal offset (rear axle to box centre) on the length axis,
+    ``(pts - bx) / dx``, then the swap (reference metrics.py:298-307)."""
+    bx = np.asarray(bx)[:2]
+    dx = np.asarray(dx)[:2]
+    h, w = float(ego_height), float(ego_width)
+    pts = np.array([[-h / 2.0 + 0.5, w / 2.0], [h / 2.0 + 0.5, w / 2.0],
+                    [h / 2.0 + 0.5, -w / 2.0], [-h / 2.0 + 0.5, -w / 2.0]])
+    pts = (pts - bx) / dx
+    pts[:, [0, 1]] = pts[:, [1, 0]]
+    return pts
+
+
 def create_frustum(final_dim: Sequence[int], downsample: int,
                    d_bound: Sequence[float]) -> np.ndarray:
     """Image-plane x depth grid -> (D, Hf, Wf, 3) numpy of (u, v, depth)."""

@@ -1,5 +1,5 @@
-"""The training step (counterpart of stp3_tpu/training/trainer.py:59-351,
-minus metrics, validation, checkpoints and the device mesh).
+"""The training and validation steps (counterpart of
+stp3_tpu/training/trainer.py, minus the device mesh).
 
 ``Trainer.train_step(batch)``: label prep (GT warped to the present
 frame) -> forward with bf16 copies of the fp32 master parameters (under
@@ -14,7 +14,11 @@ Under MODEL.NORM 'bn' the model runs in training mode, so every 'bn'
 site normalises with its batch's statistics and moves its running
 statistics once a step: the forward's sites in the forward (not again in
 REMAT's recomputation), the planner's in the planner's call.
-``eval_forward`` runs the model in eval mode, on the running statistics.
+``val_forward`` runs the model in eval mode, on the running statistics,
+and returns the output in fp32 with the warped labels; ``val_step``
+feeds them to the validation metrics (built from the config, as in the
+JAX trainer), leaving out the rows the loader's ``valid`` mask marks;
+``compute_metrics`` / ``reset_metrics`` read and clear them.
 'bn_frozen''s statistics are buffers, which neither the optimizer, the
 weight decay nor the clip sees (the JAX trainer's ``optax.masked``).
 
@@ -28,7 +32,7 @@ root of the bias-corrected second moment, as the JAX package's
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,9 +40,11 @@ from torch.func import functional_call
 
 from stp3_tpu_torch.layers.base import init_parameters
 from stp3_tpu_torch.losses import hdmap_loss, segmentation_loss, spatial_regression_loss
+from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
 from stp3_tpu_torch.utils.device import resolve_device
+from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
 from stp3_tpu_torch.utils.network import prepare_image
 from stp3_tpu_torch.utils.precision import cast_parameters, policy_dtype
 
@@ -50,8 +56,12 @@ def make_optimizer(cfg, params) -> torch.optim.Adam:
                             weight_decay=float(cfg.OPTIMIZER.WEIGHT_DECAY))
 
 
-def batch_to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+def batch_to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, Any]:
+    """The batch's arrays as tensors on ``device``; the loader's per-row
+    ``valid`` mask stays a host numpy array (``Trainer.val_step`` reads it
+    on the host)."""
+    return {k: np.asarray(v) if k == 'valid' else torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 class Trainer:
@@ -73,6 +83,19 @@ class Trainer:
         self.model = model.to(self.device).train()
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.step = 0                 # optimizer steps taken (restored on resume)
+
+        n_classes = len(cfg.SEMANTIC_SEG.VEHICLE.WEIGHTS)
+        self.metric_vehicle_val = IoUMetric(n_classes)
+        self.metric_pedestrian_val = (IoUMetric(n_classes)
+                                      if cfg.SEMANTIC_SEG.PEDESTRIAN.ENABLED else None)
+        self.metric_hdmap_val = ([IoUMetric(2, absent_score=1.0)
+                                  for _ in cfg.SEMANTIC_SEG.HDMAP.ELEMENTS]
+                                 if cfg.SEMANTIC_SEG.HDMAP.ENABLED else None)
+        self.metric_panoptic_val = (PanopticMetric(n_classes)
+                                    if cfg.INSTANCE_SEG.ENABLED else None)
+        self.metric_planning_val = (PlanningMetric(cfg, cfg.N_FUTURE_FRAMES)
+                                    if cfg.PLANNING.ENABLED else None)
 
     # ------------------------------------------------------------ labels
     def prepare_future_labels(self, batch) -> Dict[str, torch.Tensor]:
@@ -179,17 +202,21 @@ class Trainer:
         total.backward()
         torch.nn.utils.clip_grad_norm_(self.model.parameters(), float(self.cfg.GRAD_NORM_CLIP))
         self.optimizer.step()
+        self.step += 1
         out = {k: v.detach() for k, v in loss.items()}
         out['total'] = total.detach()
         return out
 
     @torch.no_grad()
-    def eval_forward(self, batch) -> Dict[str, torch.Tensor]:
-        """The model's output for a batch in eval mode (no masks, no noise,
-        'bn' on its running statistics) with the policy's parameter copies;
-        with a planner also ``final_traj``, planned on the predicted
-        occupancy (the JAX trainer's ``_val_forward_impl``)."""
+    def val_forward(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        """(output, labels) of a batch: the model in eval mode (no masks, no
+        noise, 'bn' on its running statistics) with the policy's parameter
+        copies; with a planner also ``final_traj``, planned on the
+        predicted occupancy. The output is cast to fp32 before anything
+        takes an argmax of it (ties among bf16 logits break otherwise than
+        among fp32 ones); the labels are ``prepare_future_labels``'."""
         model, rf, dt = self.model, self.rf, self.compute_dtype
+        labels = self.prepare_future_labels(batch)
         params_c = cast_parameters(model, dt)
         model.eval()
         try:
@@ -203,12 +230,90 @@ class Trainer:
                 _, output['final_traj'] = functional_call(
                     model.planner, _planner_params(params_c), (
                         output['cam_front'], batch['sample_trajectory'][:, :, 1:].to(dt),
-                        batch['gt_trajectory'][:, 1:].to(dt), output['costvolume'][:, rf:],
+                        labels['gt_trajectory'][:, 1:].to(dt), output['costvolume'][:, rf:],
                         torch.logical_or(seg, ped)[:, rf:].to(dt), output['hdmap'],
                         batch['command'], batch['target_point'].to(dt)))
         finally:
             model.train()
-        return output
+        return _to_fp32(output), labels
+
+    def val_step(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        """``val_forward`` and the metric updates (reference
+        trainer.py:199-250). A ``valid`` key (a per-row bool, the loader's
+        ``with_valid_mask``) marks the wrap-around padding rows of a ragged
+        multi-process validation tail: those rows enter no metric, so the
+        summed metrics equal a one-process run's."""
+        rf = self.rf
+        batch = dict(batch)
+        valid = batch.pop('valid', None)
+        output, labels = self.val_forward(batch)
+        vmask = None if valid is None else np.asarray(valid, bool)
+        rows = None
+        if vmask is not None and not vmask.all():
+            rows = torch.as_tensor(np.flatnonzero(vmask), device=self.device)
+
+        def m(a):
+            if rows is None:
+                return a
+            return a[vmask] if isinstance(a, np.ndarray) else a[rows]
+
+        self.metric_vehicle_val.update(m(output['segmentation'].argmax(-1))[:, rf - 1:],
+                                       m(labels['segmentation'])[:, rf - 1:])
+        if self.metric_pedestrian_val is not None:
+            self.metric_pedestrian_val.update(m(output['pedestrian'].argmax(-1))[:, rf - 1:],
+                                              m(labels['pedestrian'])[:, rf - 1:])
+        if self.metric_hdmap_val is not None:
+            hd, hdl = m(output['hdmap']), m(labels['hdmap'])
+            for i, metric in enumerate(self.metric_hdmap_val):
+                metric.update(hd[..., 2 * i:2 * (i + 1)].argmax(-1), hdl[..., i])
+        if self.metric_panoptic_val is not None:
+            consistent = predict_instance_segmentation_and_trajectories(output)
+            self.metric_panoptic_val.update(m(consistent)[:, rf - 1:],
+                                            m(labels['instance'])[:, rf - 1:])
+        if self.metric_planning_val is not None:
+            seg_lab = m(labels['segmentation'])[:, rf:]
+            ped_lab = m(labels['pedestrian'])[:, rf:] if 'pedestrian' in labels else (
+                torch.zeros_like(seg_lab))
+            self.metric_planning_val.update(m(output['final_traj']),
+                                            m(labels['gt_trajectory'])[:, 1:],
+                                            torch.logical_or(seg_lab, ped_lab))
+        return output, labels
+
+    # ----------------------------------------------------------- metrics
+    def _all_metrics(self):
+        ms = [self.metric_vehicle_val, self.metric_pedestrian_val,
+              self.metric_panoptic_val, self.metric_planning_val]
+        if self.metric_hdmap_val is not None:
+            ms.extend(self.metric_hdmap_val)
+        return [m for m in ms if m is not None]
+
+    def compute_metrics(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {'iou_vehicle': self.metric_vehicle_val.compute()}
+        if self.metric_pedestrian_val is not None:
+            out['iou_pedestrian'] = self.metric_pedestrian_val.compute()
+        if self.metric_hdmap_val is not None:
+            for name, metric in zip(self.cfg.SEMANTIC_SEG.HDMAP.ELEMENTS, self.metric_hdmap_val):
+                out[f'iou_hdmap_{name}'] = metric.compute()
+        if self.metric_panoptic_val is not None:
+            out['panoptic'] = self.metric_panoptic_val.compute()
+        if self.metric_planning_val is not None:
+            out['planning'] = self.metric_planning_val.compute()
+        return out
+
+    def reset_metrics(self):
+        for m in self._all_metrics():
+            m.reset()
+
+
+def _to_fp32(output: Dict[str, Any]) -> Dict[str, Any]:
+    """Every floating tensor of an output dict (and of its lists) in fp32."""
+    def conv(v):
+        if isinstance(v, (list, tuple)):
+            return [conv(x) for x in v]
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.float()
+        return v
+    return {k: conv(v) for k, v in output.items()}
 
 
 def _planner_params(params_c: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

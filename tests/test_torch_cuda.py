@@ -365,3 +365,81 @@ def test_batch_norm_model_on_the_card_matches_the_cpu(cuda, kind):
             torch.testing.assert_close(got[key].cpu(), want[key], atol=2e-3, rtol=1e-3)
     for name, want in outs['cpu'][2].items():
         torch.testing.assert_close(outs['cuda'][2][name], want, rtol=1e-4, atol=1e-5)
+
+
+def _decode_case(seed, b=2, t=3, h=64, w=56):
+    """Decoder-like heads: gaussian center blobs with offsets toward them
+    and foreground discs, plus one crowded frame (more than 100 isolated
+    peaks on a lattice) and one all-foreground frame."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    logits = np.zeros((b, t, h, w, 2), np.float32)
+    centers = np.zeros((b, t, h, w, 1), np.float32)
+    offsets = (rng.randn(b, t, h, w, 2) * 0.3).astype(np.float32)
+    gx, gy = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    for i in range(b):
+        for j in range(t):
+            fg = np.zeros((h, w), bool)
+            if (i, j) == (0, 0):
+                centers[i, j, 1:-1:3, 1:-1:3, 0] = 0.2 + 0.8 * rng.rand(*gx[1:-1:3, 1:-1:3].shape)
+                offsets[i, j] *= 6.0
+                fg[1:-1, 1:-1] = True
+            else:
+                for ci, cj in zip(rng.randint(3, h - 3, 5), rng.randint(3, w - 3, 5)):
+                    d2 = (gx - ci) ** 2 + (gy - cj) ** 2
+                    centers[i, j, ..., 0] = np.maximum(centers[i, j, ..., 0], np.exp(-d2 / 4.0))
+                    mask = d2 <= 9
+                    fg |= mask
+                    offsets[i, j][mask] = np.stack([ci - gx[mask], cj - gy[mask]], -1)
+                if (i, j) == (1, 1):
+                    fg[:] = True
+            logits[i, j, ..., 1] = np.where(fg, 5.0, -5.0)
+    return logits, centers, offsets
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_device_decode_on_the_card_matches_the_host_loop(cuda, seed):
+    """utils/instance_jit.py on the card against the host numpy loop, id
+    for id (crowded, all-foreground and blob frames)."""
+    import numpy as np
+    from stp3_tpu_torch.utils import instance as ti
+    from stp3_tpu_torch.utils.instance_jit import decode_instances
+    logits, centers, offsets = _decode_case(seed)
+    got = decode_instances(*(torch.from_numpy(a).to(cuda) for a in
+                             (logits, centers, offsets))).cpu().numpy()
+    fg = logits.argmax(-1) == 1
+    want = np.stack([np.stack([ti.get_instance_segmentation_and_centers(
+        centers[i, j, ..., 0], offsets[i, j], fg[i, j])[0] for j in range(logits.shape[1])])
+        for i in range(logits.shape[0])])
+    np.testing.assert_array_equal(got, want)
+    assert got[0, 0].max() == 100
+
+
+def test_metric_increments_on_the_card_equal_the_cpus(cuda):
+    """IoU counts and the planning metric's increments (trajectories off
+    the grid on every side, occupancy blocks) computed on the card equal
+    the CPU's: counts exactly, the L2 sums at rtol 1e-6."""
+    import numpy as np
+    from stp3_tpu_torch.config import get_cfg
+    from stp3_tpu_torch.metrics import IoUMetric, PlanningMetric
+    rng = np.random.RandomState(0)
+    pred = torch.from_numpy(rng.randint(-1, 3, (2, 4, 50, 60)))
+    target = torch.from_numpy(rng.randint(0, 3, (2, 4, 50, 60)))
+    states = []
+    for dev in ('cpu', cuda):
+        m = IoUMetric(3)
+        m.update(pred.to(dev), target.to(dev))
+        states.append(m.state)
+    for key, want in states[0].items():
+        np.testing.assert_array_equal(states[1][key], want, err_msg=key)
+
+    trajs = (rng.randn(4, 6, 3) * 30).astype(np.float32)
+    gt = trajs + rng.randn(4, 6, 3).astype(np.float32)
+    seg = torch.from_numpy((rng.rand(4, 6, 200, 200) > 0.99).astype(np.int64))
+    incs = [PlanningMetric(get_cfg(), 6).increments(torch.from_numpy(trajs).to(dev),
+                                                    torch.from_numpy(gt).to(dev),
+                                                    seg.to(dev)).cpu()
+            for dev in ('cpu', cuda)]
+    assert torch.equal(incs[1][:2], incs[0][:2])
+    torch.testing.assert_close(incs[1][2], incs[0][2], rtol=1e-6, atol=0)
+    assert incs[0][1].sum() > 0

@@ -239,7 +239,7 @@ def test_bn_step_is_remat_invariant_and_eval_uses_running_statistics(bn_step):
     """REMAT 'none' (no recomputation) gives the same running statistics as
     REMAT 'encoder', both in fp32 from the same weights (dropout off; to
     rtol 1e-6: only the two backward passes' rounding differs, and the
-    statistics come from the forward). Then eval_forward runs on the
+    statistics come from the forward). Then val_forward runs on the
     running statistics: finite heads that differ from the train-mode
     forward's on the same batch."""
     s = bn_step
@@ -254,7 +254,7 @@ def test_bn_step_is_remat_invariant_and_eval_uses_running_statistics(bn_step):
                         if n.endswith(('.mean', '.var'))}
     for name, want in stats['none'].items():
         torch.testing.assert_close(stats['encoder'][name], want, rtol=1e-6, atol=1e-7)
-    evaluated = tr.eval_forward(batch)
+    evaluated, _ = tr.val_forward(batch)
     assert tr.model.training
     for name, b in tr.model.named_buffers():    # the eval forward moved nothing
         if name in stats['none']:

@@ -165,7 +165,8 @@ def test_perception_serve_step_matches_the_jax_tail():
 
 @pytest.mark.parametrize('stage,yaml', [('perception', 'nuscenes/Perception.yml'),
                                         ('carla_perception', 'carla/Perception.yml'),
-                                        ('prediction_ber', 'nuscenes/Prediction_Ber.yml')])
+                                        ('prediction_ber', 'nuscenes/Prediction_Ber.yml'),
+                                        ('prediction', 'nuscenes/Prediction.yml')])
 def test_chip_smoke_stage_cfgs_are_their_yamls(stage, yaml):
     """chip_smoke.py's stage configs, as code, against their YAML through the
     port's loader (the LR compares as a float: YAML 1.1 reads '1e-3' as a

@@ -74,15 +74,18 @@ def jax_model(cfg):
     return JSTP3(JCfg.from_cfg(jcfg)), jcfg
 
 
-def seeded_variables(jm, inputs, seed=0):
+def seeded_variables(jm, inputs, seed=0, extras=None):
     """Seeded numpy weights in the JAX model's variable tree (its shapes
     from a trace of its init, no compile): kernels normal over the square
     root of their fan-in, norm scales near 1, biases, running means and
     layer scales near 0, running variances in [0.5, 1.5]. Not flax's
     initialisers (compiling the init costs ~30 s a model), and a harder
-    test: no bias, mean or layer scale sits at an exact zero."""
-    shapes = jax.eval_shape(lambda key, *a: jm.init(key, *a, method=JSTP3.init_full),
-                            jax.random.PRNGKey(0), *inputs)
+    test: no bias, mean or layer scale sits at an exact zero. ``extras``:
+    the planner's arguments of ``init_full`` (trajs, gt_trajs, commands,
+    target_points), for a model with a planner."""
+    shapes = jax.eval_shape(
+        lambda key, *a: jm.init(key, *a, **(extras or {}), method=JSTP3.init_full),
+        jax.random.PRNGKey(0), *inputs)
     rng = np.random.RandomState(seed)
 
     def draw(path, leaf):
