@@ -95,7 +95,27 @@ Phases, each printing one line (or a few) before the last:
      both timed, and the Hungarian linking;
  20. [labels as prediction]: the labels fed back as the prediction, at
      full width: IoU = PQ = SQ = RQ = 1 for every present class, L2 = 0,
-     no collision.
+     no collision;
+ 21. [reference_import]: a reference-format Lightning .ckpt of the
+     nuScenes Planning stage at full width (seeded; BN statistics and every
+     constant vector redrawn; the config as plain hyper_parameters)
+     through stp3_tpu_torch.scripts.import_torch_checkpoint (an ok()
+     report, only the bookkeeping ignored), evaluated on the card as
+     [evaluate_planning] is (K1 once and K2 twice a sample), exported back
+     with export_torch_checkpoint and held to the input bit for bit (the
+     planner GRU's r / z biases to their fold); tensors, bytes, import and
+     export seconds, samples/s;
+ 22. [carla_agent]: the same for the CARLA Planning stage at full width
+     (CAM_FRONT_PARITY set and printed), then the harness
+     stp3_tpu_torch.carla_agent.STP3Agent on the card over the recorded
+     ticks as 300x400 BGRA sensor data with gps, speed and imu: warm-up
+     ticks zero, planned ticks equal (1e-5, under deterministic
+     algorithms; the spread without them, from the order of fp32 atomic
+     adds, printed) to an AgentCore on the same model fed the RGB frames,
+     launches per tick as [agent]'s default (static) mode, the tick p50
+     beside [agent]'s plan_step p50; then the
+     harness with the model cast to bf16: its tick p50 and how many of 20
+     planned ticks select another candidate than fp32.
 With --profile, torch.profiler windows of 3 calls (device events, summed
 device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
@@ -287,7 +307,7 @@ KERNELS = (
 )
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
-         'evaluate_prediction')
+         'evaluate_prediction', 'reference_import', 'carla_agent')
 
 
 def counters():
@@ -1173,7 +1193,7 @@ def phase_agent(device, card):
     """[agent]: the CARLA Planning stage at full width, seeded fp32 weights:
     the serving methods against the full forward, then AgentCore's three
     tick modes. Returns (K1's numbers at the agent's splat, the launches of
-    one steady tick of each mode)."""
+    one steady tick of each mode, each mode's plan_step p50 in ms)."""
     import torch
     from stp3_tpu_torch.datas.carla import carla_cam_rig, scale_and_crop_image
     from stp3_tpu_torch.deploy.agent_core import AgentCore
@@ -1275,7 +1295,7 @@ def phase_agent(device, card):
     del out_f, served, cache
 
     # the three tick modes through AgentCore: 2 checked ticks, then 20 timed
-    per_tick, n_timed = {}, 20
+    per_tick, plan_p50, n_timed = {}, {}, 20
     for mode, kw in AGENT_MODES:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1310,6 +1330,7 @@ def phase_agent(device, card):
         per = {name: n / n_timed for name, n in launches.items()}
         expect_launches(f'agent {mode} tick', per, **({} if mode == 'static' else {'bev_splat': 1}))
         per_tick[mode] = {name: int(n) for name, n in per.items()}
+        plan_p50[mode] = float(np.median(plan_ms[2:]))
         first = [tuple(round(float(v), 4) for v in c[:3]) for c in controls[:2]]
         say(f'[agent] {mode}: set-up (incl. warm-up{", column plan" if mode == "static" else ""}) '
             f'{setup_s:.2f} s; first two planned ticks (steer, throttle, brake) {first}; '
@@ -1321,7 +1342,7 @@ def phase_agent(device, card):
             f'on {card}')
         if '--profile' in sys.argv[1:]:
             profile_ticks(core, mode, card)
-    return k1, per_tick
+    return k1, per_tick, plan_p50
 
 
 def profile_steps(run, n: int = 3, n_gaps: int = 3) -> dict:
@@ -1877,6 +1898,323 @@ def phase_labels_as_prediction(pred_trainer, pred_batch, device, card):
         f'{int(pan.state["true_positive"][1])} vehicle instances; no false positive or negative')
 
 
+def reference_state_dict(mcfg, seed: int = SEED) -> dict:
+    """A reference-format state_dict of ``mcfg`` (a models.stp3.STP3Config)
+    from ``seed``: the port's ``synthesize_state_dict``, then every BN
+    running variance drawn from [0.5, 1.5] and every other vector or scalar
+    the init leaves constant (biases, BN scales, running means, layer
+    scales, the GRU biases, the uncertainty weights) moved off its constant,
+    so that a swapped mean and variance, a transposed kernel or a bias in
+    the wrong place changes the outputs."""
+    from stp3_tpu_torch.utils import torch_import as ti
+    sd = ti.synthesize_state_dict(mcfg, seed)
+    rng = np.random.RandomState(seed)
+    for key, value in sd.items():
+        if key.endswith('.running_var'):
+            sd[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
+        elif value.ndim <= 1 and np.all(value == value.flat[0]):
+            sd[key] = (value + 0.1 * rng.randn(*value.shape)).astype(np.float32)
+    return sd
+
+
+def grid_constants(mcfg) -> dict:
+    """The grid buffers a reference checkpoint carries (``model.frustum``,
+    ``model.bev_*``), from the port's geometry."""
+    from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters, create_frustum
+    res, start, dim = calculate_birds_eye_view_parameters(mcfg.x_bound, mcfg.y_bound,
+                                                          mcfg.z_bound)
+    return {'model.bev_resolution': res, 'model.bev_start_position': start,
+            'model.bev_dimension': dim,
+            'model.frustum': create_frustum(mcfg.final_dim, mcfg.encoder_downsample,
+                                            mcfg.d_bound).astype(np.float32)}
+
+
+def write_reference_checkpoint(cfg, path: str, seed: int = SEED):
+    """Write a Lightning-style .ckpt of ``cfg`` to ``path``: {'state_dict':
+    {'model.*': tensor}, 'hyper_parameters': the config as a plain dict,
+    ...}, with the bookkeeping entries a reference file carries
+    (``num_batches_tracked`` beside every BN, ``model.frustum``,
+    ``model.bev_*``). Returns (the model's state_dict as numpy, the
+    bookkeeping keys)."""
+    import torch
+    from stp3_tpu_torch.models.stp3 import STP3Config
+    mcfg = STP3Config.from_cfg(cfg)
+    sd = reference_state_dict(mcfg, seed)
+    extra = grid_constants(mcfg)
+    extra.update({k[:-len('running_mean')] + 'num_batches_tracked': np.asarray(7, np.int64)
+                  for k in sd if k.endswith('.running_mean')})
+    state_dict = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in {**sd, **extra}.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({'state_dict': state_dict, 'hyper_parameters': cfg.convert_to_dict(),
+                'epoch': 19, 'global_step': 1000}, path)
+    return sd, sorted(extra)
+
+
+def gru_fold(sd: dict, key: str):
+    """The planner GRU's (bias_ih, bias_hh) as export writes them after an
+    import: the r / z parts of bias_hh folded into bias_ih, zeros left."""
+    bih, bhh = sd[f'{key}.bias_ih'], sd[f'{key}.bias_hh']
+    h = bhh.shape[0] // 3
+    return (np.concatenate([bih[:2 * h] + bhh[:2 * h], bih[2 * h:]]),
+            np.concatenate([np.zeros(2 * h, np.float32), bhh[2 * h:]]))
+
+
+def check_export(sd: dict, bookkeeping, exported: dict, cfg) -> int:
+    """Fail unless ``exported`` (the state_dict of an exported .ckpt) holds
+    every tensor of ``sd`` bit for bit, the planner GRU's biases as their
+    fold, and the bookkeeping entries rebuilt. Returns the tensors checked."""
+    import torch
+    from stp3_tpu_torch.models.stp3 import STP3Config
+    if sorted(exported) != sorted(set(sd) | set(bookkeeping)):
+        fail(f'export: keys differ: {sorted(set(exported) ^ set(sd) ^ set(bookkeeping))[:6]}')
+    want = dict(sd)
+    gru = 'model.planning.GRU'
+    if f'{gru}.bias_ih' in sd:
+        want[f'{gru}.bias_ih'], want[f'{gru}.bias_hh'] = gru_fold(sd, gru)
+    want.update(grid_constants(STP3Config.from_cfg(cfg)))
+    want.update({k: np.zeros((), np.int64) for k in bookkeeping if 'num_batches_tracked' in k})
+    bad = [k for k, v in want.items()
+           if not torch.equal(exported[k], torch.from_numpy(np.ascontiguousarray(v)))]
+    if bad:
+        fail(f'export: {len(bad)} tensors do not come back bit for bit, e.g. {bad[:4]}')
+    return len(want)
+
+
+def phase_reference_import(device, card, repo: str, cfg=None) -> dict:
+    """[reference_import]: a reference-format Lightning .ckpt of the
+    nuScenes Planning stage at full width (seeded, the config as plain
+    hyper_parameters), imported with ``import_torch_checkpoint`` (an ok()
+    report, only the bookkeeping ignored), evaluated with
+    ``stp3_tpu_torch.evaluate.evaluate`` on the card at batch 1 as
+    [evaluate_planning] is (K1 once and K2 twice a sample), then exported
+    with ``export_torch_checkpoint`` and held to the input bit for bit (the
+    planner GRU's r / z biases to their fold). Returns the evaluation's
+    launches."""
+    import shutil
+    import torch
+    from stp3_tpu_torch.scripts.export_torch_checkpoint import export_checkpoint
+    from stp3_tpu_torch.scripts.import_torch_checkpoint import import_checkpoint
+    cfg = cfg if cfg is not None else make_cfg(PLANNING_STAGE, CLI_DATA)
+    root = os.path.join(repo, 'build', 'chip_smoke', 'reference_import')
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, 'reference.ckpt')
+    sd, bookkeeping = write_reference_checkpoint(cfg, ckpt)
+    n_bytes = sum(v.nbytes for v in sd.values())
+
+    def log(msg):
+        say(f'[reference_import] {msg}')
+
+    t0 = time.perf_counter()
+    path, report = import_checkpoint(ckpt, os.path.join(root, 'imported'), log=log)
+    import_s = time.perf_counter() - t0
+    if not report.ok() or report.ignored != bookkeeping:
+        fail(f'[reference_import] report: missing {report.missing[:4]}, unexpected '
+             f'{report.unexpected[:4]}, ignored beyond the bookkeeping '
+             f'{sorted(set(report.ignored) ^ set(bookkeeping))[:4]}')
+    launches = phase_evaluate('reference_import', path, device, card, planning_result_keys(cfg))
+    t0 = time.perf_counter()
+    export_checkpoint(path, os.path.join(root, 'exported.ckpt'), log=log)
+    export_s = time.perf_counter() - t0
+    exported = torch.load(os.path.join(root, 'exported.ckpt'), map_location='cpu',
+                          weights_only=True)['state_dict']
+    n = check_export(sd, bookkeeping, exported, cfg)
+    say(f'[reference_import] {cfg.TAG}: {len(sd)} model tensors, {n_bytes} B '
+        f'({sum(v.size for v in sd.values())} values) + {len(bookkeeping)} bookkeeping entries; '
+        f'import {import_s:.2f} s, export {export_s:.2f} s (wall clock, host); report ok, '
+        f'{report.converted} leaves, only the bookkeeping ignored; the export gives back all '
+        f'{n} tensors bit for bit (the planner GRU\'s r / z biases as their fold); on {card}')
+    return launches
+
+
+def bgra_tick(t: int, frame: dict, theta: float) -> dict:
+    """One leaderboard sensor tick of a recorded frame: 300x400 BGRA
+    cameras, gps (lat, lon, alt) 2 m further north each tick, speed 3 m/s,
+    the compass last in the imu."""
+    from stp3_tpu_torch.deploy.control import RoutePlanner
+    data = {key: (t, np.concatenate([img[..., ::-1], np.full(img.shape[:2] + (1,), 255,
+                                                             np.uint8)], -1))
+            for key, img in frame.items()}
+    data['gps'] = (t, np.array([2.0 * t / RoutePlanner.SCALE[0], 0.0, 0.0]))
+    data['speed'] = (t, {'speed': 3.0})
+    data['imu'] = (t, np.array([0.0] * 6 + [theta]))
+    return data
+
+
+# the harness's route: north along the ticks' gps, then a turn
+AGENT_ROUTE = [({'lat': 0.0, 'lon': 0.0}, 4), ({'lat': 2e-4, 'lon': 0.0}, 4),
+               ({'lat': 6e-4, 'lon': 1e-4}, 1)]
+
+
+def record_selection(model, sink: dict) -> None:
+    """Wrap ``model.planner.select`` to append the index of the candidate it
+    selects (B,) to ``sink['picks']`` (a measurement; nothing else changes)."""
+    select = model.planner.select
+
+    def recording(trajs, *args):
+        final = select(trajs, *args)
+        sink['picks'].append((trajs == final[:, None]).flatten(2).all(-1).int().argmax(-1))
+        return final
+    model.planner.select = recording
+
+
+def drive_harness(agent, n_ticks: int):
+    """``run_step`` over ``n_ticks`` recorded ticks (the sampler's module RNG
+    seeded before each): the controls, each planned tick's wall ms, and
+    the launches of the planned ticks after the first two."""
+    controls, tick_ms = [], []
+    for t, (frame, _, theta) in enumerate(recorded_ticks(n_ticks)):
+        data = bgra_tick(t, frame, theta)
+        if len(tick_ms) == 2:
+            reset_launches()
+        np.random.seed(SEED + t)
+        t0 = time.perf_counter()
+        controls.append(agent.run_step(data, t))
+        if agent.core.warmed_up:
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+    return controls, tick_ms, read_launches()
+
+
+def drive_core(core, n_ticks: int):
+    """The same ticks into an ``AgentCore`` directly: RGB frames, the
+    position, command and local target computed here as the leaderboard
+    glue does (reference carla_agent.py), zero control while warming up."""
+    from stp3_tpu_torch.deploy.control import RoutePlanner
+    route = RoutePlanner(1.0, 50.0)
+    route.set_route(AGENT_ROUTE, True)
+    controls = []
+    for t, (frame, _, theta) in enumerate(recorded_ticks(n_ticks)):
+        gps = np.array([2.0 * t / RoutePlanner.SCALE[0], 0.0])
+        pos = (gps - route.mean) * route.scale
+        wp, cmd = route.run_step(pos)
+        c, s_ = np.cos(theta + np.pi / 2), np.sin(theta + np.pi / 2)
+        local = np.array([[c, -s_], [s_, c]]).T @ (wp - pos) * [1.0, -1.0]
+        core.push_frame(frame, pos, theta)
+        np.random.seed(SEED + t)
+        if not core.warmed_up:
+            controls.append((0.0, 0.0, 0.0))
+            continue
+        steer, throttle, brake, _ = core.plan_step(3.0, cmd, local)
+        brake = float(brake)
+        controls.append((steer, throttle, 0.0 if brake < 0.05 or throttle > brake else brake))
+    return controls
+
+
+def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: dict,
+                      cfg=None) -> dict:
+    """[carla_agent]: a reference-format .ckpt of the CARLA Planning stage
+    at full width, imported (PLANNING.CAM_FRONT_PARITY set: the rig's front
+    camera is at index 0), driven through the harness ``STP3Agent`` on the
+    card over the recorded ticks as BGRA sensor data: warm-up ticks zero,
+    planned ticks equal (1e-5, deterministic algorithms) to an
+    ``AgentCore`` on the same loaded model fed the RGB frames, launches
+    per tick as [agent]'s default (static)
+    mode; the harness tick p50 beside [agent]'s plan_step p50. Then the
+    harness with the model cast to bf16: its tick p50 and how many planned
+    ticks select another candidate than fp32 (a measurement). Returns the
+    launches of the 20 timed fp32 ticks."""
+    import shutil
+    import torch
+    from stp3_tpu_torch.carla_agent import STP3Agent
+    from stp3_tpu_torch.deploy.agent_core import AgentCore
+    from stp3_tpu_torch.scripts.import_torch_checkpoint import CAM_FRONT_NOTE, import_checkpoint
+    from stp3_tpu_torch.training import checkpoint as ckpt_lib
+    cfg = cfg if cfg is not None else carla_planning_cfg()
+    root = os.path.join(repo, 'build', 'chip_smoke', 'carla_agent')
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, 'reference.ckpt')
+    write_reference_checkpoint(cfg, ckpt)
+    notes = []
+
+    def log(msg):
+        notes.append(msg)
+        say(f'[carla_agent] {msg}')
+
+    path, report = import_checkpoint(ckpt, os.path.join(root, 'imported'), log=log)
+    if not report.ok() or CAM_FRONT_NOTE not in notes or not ckpt_lib.load_config_dict(
+            path)['PLANNING']['CAM_FRONT_PARITY']:
+        fail(f'[carla_agent] import: report ok {report.ok()}, CAM_FRONT_PARITY not set and '
+             f'printed for the rig {list(cfg.IMAGE.NAMES)}')
+
+    rf, n_timed = cfg.TIME_RECEPTIVE_FIELD, 20
+    n_ticks = rf + 3 + n_timed
+    agent = STP3Agent()
+    agent.setup(path)
+    if agent.core.device.type != device.type or agent.core.model.cfg.cam_front_index != 1:
+        fail(f'[carla_agent] the harness runs on {agent.core.device}, planner camera '
+             f'{agent.core.model.cfg.cam_front_index}')
+    agent.set_global_plan(AGENT_ROUTE)
+    sink = {'picks': []}
+    record_selection(agent.core.model, sink)
+    controls, tick_ms, launches = drive_harness(agent, n_ticks)
+    picks = {'fp32': list(sink['picks'])}
+    per = {name: n / n_timed for name, n in launches.items()}
+    expect_launches('[carla_agent] harness tick', per,
+                    **{k: v for k, v in agent_per_tick['static'].items() if v})
+    n_warm = len(controls) - len(tick_ms)
+    zero = {'steer': 0.0, 'throttle': 0.0, 'brake': 0.0}
+    if len(tick_ms) != 2 + n_timed or n_warm != rf + 1 or any(c != zero for c in controls[:n_warm]):
+        fail(f'[carla_agent] {len(controls)} ticks, {len(tick_ms)} planned, warm-up controls '
+             f'{controls[:n_warm]}')
+    core = AgentCore(agent.cfg, agent.core.model, device=device)
+    sink['picks'] = []                        # (after the core's warm-up plan)
+    direct = drive_core(core, n_ticks)
+    got = np.array([[c['steer'], c['throttle'], c['brake']] for c in controls], np.float64)
+    spread = float(np.abs(got - np.array(direct, np.float64)).max())
+    flips_nd = sum(a != b for a, b in zip(torch.cat(picks['fp32']).tolist(),
+                                          torch.cat(sink['picks']).tolist()))
+    # the comparison itself with deterministic algorithms: two runs of the same
+    # ticks on the card differ by the order of their fp32 atomic adds (the
+    # column splat's index_add_), which the line above shows
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        agent_d = STP3Agent()
+        agent_d.setup(path)
+        agent_d.set_global_plan(AGENT_ROUTE)
+        controls_d, _, _ = drive_harness(agent_d, n_ticks)
+        direct_d = drive_core(AgentCore(agent_d.cfg, agent_d.core.model, device=device), n_ticks)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got_d = np.array([[c['steer'], c['throttle'], c['brake']] for c in controls_d], np.float64)
+    err = float(np.abs(got_d - np.array(direct_d, np.float64)).max())
+    if err > 1e-5 or controls_d[:n_warm] != controls[:n_warm]:
+        fail(f'[carla_agent] harness controls differ from a direct AgentCore by {err:.3e} '
+             f'(deterministic algorithms)')
+    say(f'[carla_agent] harness: {n_warm} warm-up ticks of zero control, {len(tick_ms)} planned '
+        f'ticks equal to a direct AgentCore on the same model within {err:.3e} (tolerance '
+        f'1e-5, deterministic algorithms; without them the two runs differ by {spread:.3e}, '
+        f'{flips_nd} of {len(tick_ms)} ticks selecting another candidate: the atomics\' '
+        f'order); launches per tick {({k: v for k, v in per.items() if v})} as [agent] '
+        f'static; harness tick p50 {np.median(tick_ms[2:]):.2f} ms (median of {n_timed}, wall '
+        f'clock: push_frame with the BGRA flip, the route planner and plan_step; spread '
+        f'{min(tick_ms[2:]):.2f}-{max(tick_ms[2:]):.2f}) beside [agent] static plan_step p50 '
+        f'{agent_p50["static"]:.2f} ms; on {card}')
+
+    # the same harness with the imported model cast to bf16 (AgentCore runs in
+    # its weights' dtype): a measurement, no option of the harness
+    agent16 = STP3Agent()
+    agent16.setup(path)
+    agent16.core = AgentCore(agent16.cfg, agent16.core.model.to(torch.bfloat16), device=device)
+    agent16.set_global_plan(AGENT_ROUTE)
+    sink = {'picks': []}
+    record_selection(agent16.core.model, sink)
+    controls16, tick16_ms, launches16 = drive_harness(agent16, n_ticks)
+    picks['bf16'] = sink['picks']
+    if len(tick16_ms) != 2 + n_timed or not all(
+            np.isfinite([c['steer'], c['throttle']]).all() for c in controls16):
+        fail(f'[carla_agent] bf16 harness: {len(tick16_ms)} planned ticks, controls {controls16}')
+    sel = {k: torch.cat(v).tolist()[2:] for k, v in picks.items()}
+    flips = sum(a != b for a, b in zip(sel['fp32'], sel['bf16']))
+    d_steer = float(np.abs(np.array([c['steer'] for c in controls16[-n_timed:]])
+                           - got[-n_timed:, 0]).max())
+    say(f'[carla_agent] bf16 harness: tick p50 {np.median(tick16_ms[2:]):.2f} ms (median of '
+        f'{n_timed}; spread {min(tick16_ms[2:]):.2f}-{max(tick16_ms[2:]):.2f}) against fp32\'s '
+        f'{np.median(tick_ms[2:]):.2f} ms; {flips} of {n_timed} planned ticks select another '
+        f'candidate than fp32 (indices fp32 {sel["fp32"]}, bf16 {sel["bf16"]}); steer differs '
+        f'by up to {d_steer:.3e}; launches per tick '
+        f'{ {k: v / n_timed for k, v in launches16.items() if v} }; on {card}')
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1925,6 +2263,7 @@ def main() -> None:
         report[name]['train_cli'] = report[name]['train']
     for name in ('bev_splat', 'convnext_mlp'):
         report[name]['evaluate_planning'] = report[name]['serving']
+        report[name]['reference_import'] = report[name]['serving']
     report['bev_splat']['evaluate_prediction'] = report['bev_splat']['serving']
     report['convnext_mlp']['evaluate_prediction'] = phase_k2(
         stage_cfg('prediction'), device, 'evaluate_prediction', 1)
@@ -1942,7 +2281,7 @@ def main() -> None:
     del trainer, batches
     torch.cuda.empty_cache()
     launches['fused'] = phase_fused(cfg, device, card)
-    report['bev_splat']['agent'], per_tick = phase_agent(device, card)
+    report['bev_splat']['agent'], per_tick, agent_p50 = phase_agent(device, card)
     # the agent path: one steady tick of each of its three modes
     launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
                          for name in counters()}
@@ -1969,6 +2308,8 @@ def main() -> None:
         'evaluate_prediction', pred_ckpt, device, card,
         ['vehicle_iou', 'vehicle_pq', 'vehicle_sq', 'vehicle_rq'])
     phase_labels_as_prediction(*phase_decode(pred_ckpt, device, card), device, card)
+    launches['reference_import'] = phase_reference_import(device, card, repo)
+    launches['carla_agent'] = phase_carla_agent(device, card, repo, per_tick, agent_p50)
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')
     for name, *_, main_path in KERNELS:

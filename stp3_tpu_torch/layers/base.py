@@ -3,7 +3,8 @@
 Every leaf names its parameters after the flax leaf it mirrors
 (``kernel``, ``bias``, ``scale``) and stores them in PyTorch's own layout
 (OIHW convs, (out, in) dense kernels). ``flax_leaf`` converts one flax
-array into that layout, which is all ``utils/from_flax.py`` needs.
+array into that layout and ``to_flax_leaf`` back, exactly, which is all
+``utils/from_flax.py`` needs.
 
 Composite modules name their children after the flax auto-names
 (``Conv_0``, ``Norm_1``, ...), so a module's dotted torch path equals its
@@ -112,6 +113,10 @@ class Conv2d(nn.Module):
         # HWIO -> OIHW; a depthwise (kh, kw, 1, C) lands on (C, 1, kh, kw)
         return arr.transpose(3, 2, 0, 1) if name == 'kernel' else arr
 
+    @staticmethod
+    def to_flax_leaf(name: str, arr: np.ndarray) -> np.ndarray:
+        return arr.transpose(2, 3, 1, 0) if name == 'kernel' else arr   # OIHW -> HWIO
+
     def pads(self, x: torch.Tensor, kh: int, kw: int):
         if self.padding == 'SAME':
             return (same_padding(x.shape[-2], kh, self.stride, self.dilation),
@@ -173,6 +178,12 @@ class ConvTranspose2d(nn.Module):
         return arr.transpose(3, 2, 0, 1) if self.transpose_kernel else (
             arr[::-1, ::-1].transpose(2, 3, 0, 1))
 
+    def to_flax_leaf(self, name: str, arr: np.ndarray) -> np.ndarray:
+        if name != 'kernel':
+            return arr
+        return arr.transpose(2, 3, 1, 0) if self.transpose_kernel else (
+            arr.transpose(2, 3, 0, 1)[::-1, ::-1])
+
     def pads(self, k: int) -> Tuple[int, int]:
         """lax.conv_transpose's 'SAME' padding of one spatial axis."""
         s = self.stride
@@ -214,6 +225,10 @@ class Dense(nn.Module):
     @staticmethod
     def flax_leaf(name: str, arr: np.ndarray) -> np.ndarray:
         return arr.T if name == 'kernel' else arr   # (I, O) -> (O, I)
+
+    @staticmethod
+    def to_flax_leaf(name: str, arr: np.ndarray) -> np.ndarray:
+        return arr.T if name == 'kernel' else arr   # (O, I) -> (I, O)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Over the LAST axis (flax semantics)."""

@@ -159,6 +159,10 @@ class CausalConv3d(ChannelsLast):
     def flax_leaf(name, arr):
         return arr.transpose(4, 3, 0, 1, 2)                      # DHWIO -> OIDHW
 
+    @staticmethod
+    def to_flax_leaf(name, arr):
+        return arr.transpose(2, 3, 4, 1, 0)                      # OIDHW -> DHWIO
+
     def nchw(self, x):
         kt, kh, kw = self.kernel_size
         dt, dh, dw = self.dilation

@@ -1,5 +1,5 @@
 """Load a ``stp3_tpu`` (flax) param tree, and its ``batch_stats``, into a
-module of this package.
+module of this package, and read them back out (``to_flax``).
 
 Every torch module is named after its flax path, so the bridge is a
 per-leaf layout transform plus a name check: the torch parameter
@@ -15,6 +15,9 @@ non-trainable params), 'bn''s from the 'batch_stats' tree.
 
 The load is strict: every flax leaf must be consumed, every torch
 parameter and statistics buffer assigned, and a shape mismatch raises.
+``to_flax`` is its inverse: each leaf through its module's
+``to_flax_leaf``, the exact inverse of ``flax_leaf``, so
+``to_flax(load_flax_variables(m, v)) == v`` bit for bit for fp32 ``v``.
 """
 from __future__ import annotations
 
@@ -81,6 +84,32 @@ def load_flax_params(module: torch.nn.Module, params: Mapping,
                        f'flax leaf {missing[:5]}, {len(extra)} flax leaves unused '
                        f'{extra[:5]}')
     return module
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict:
+    """{'a/b/leaf': array} -> nested dict of arrays (``flatten_tree``'s inverse)."""
+    tree: Dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split('/')
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def to_flax(module: torch.nn.Module) -> Dict[str, Dict]:
+    """``module``'s flax variables as nested dicts of fp32 numpy arrays:
+    ``{'params': ...}``, and ``'batch_stats'`` when it has 'bn' sites
+    ('bn_frozen' statistics sit in 'params', as flax keeps them)."""
+    flat: Dict[str, Dict[str, np.ndarray]] = {'params': {}}
+    for path, mod, name, t, collection in _leaves(module):
+        arr = t.detach().to('cpu', torch.float32).numpy()
+        transform = getattr(mod, 'to_flax_leaf', None)
+        if transform is not None:
+            arr = transform(name, arr)
+        flat.setdefault(collection, {})[path] = np.array(arr, np.float32, order='C')
+    return {collection: unflatten_tree(leaves) for collection, leaves in flat.items()}
 
 
 def load_flax_variables(module: torch.nn.Module, variables: Mapping) -> torch.nn.Module:

@@ -367,6 +367,51 @@ def test_batch_norm_model_on_the_card_matches_the_cpu(cuda, kind):
         torch.testing.assert_close(outs['cuda'][2][name], want, rtol=1e-4, atol=1e-5)
 
 
+def test_imported_reference_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A seeded reference-format .ckpt of the tiny Planning stage through
+    import_torch_checkpoint, loaded on both devices in fp32 (TF32 off):
+    every head at atol 2e-3, rtol 1e-3, and the planner's refined
+    trajectory on the same arguments."""
+    import chip_smoke
+    from stp3_tpu_torch.config import get_cfg
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.scripts.import_torch_checkpoint import import_checkpoint
+    from stp3_tpu_torch.training import checkpoint as ckpt_lib
+    from stp3_tpu_torch.utils.precision import pin_fp32_math
+    pin_fp32_math()
+    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY_WIDTHS,
+                              {'PRECISION': 32})
+    chip_smoke.write_reference_checkpoint(cfg, str(tmp_path / 'ref.ckpt'))
+    path, report = import_checkpoint(str(tmp_path / 'ref.ckpt'), str(tmp_path / 'out'),
+                                     log=lambda msg: None)
+    assert report.ok()
+    mcfg = STP3Config.from_cfg(get_cfg(cfg_dict=ckpt_lib.load_config_dict(path)))
+    assert mcfg.norm == 'bn_frozen'
+    (image, k, e, ego), ex = chip_smoke.example_inputs(cfg)
+    rf = cfg.TIME_RECEPTIVE_FIELD
+    outs = {}
+    for dev in ('cpu', cuda):
+        model = STP3(mcfg)
+        model.load_state_dict(ckpt_lib.load_checkpoint(path)['model'])
+        model = model.to(dev).eval()
+        with torch.no_grad():
+            out = model(*(torch.as_tensor(a, device=dev) for a in (image, k, e, ego)))
+            if 'cpu' in outs:       # the planner on the CPU's arguments
+                args = [a.to(dev) for a in outs['cpu'][1]]
+            else:
+                occ = torch.logical_or(out['segmentation'].argmax(-1),
+                                       out['pedestrian'].argmax(-1)).float()[:, rf:]
+                args = [out['cam_front'], torch.as_tensor(ex['trajs']),
+                        torch.as_tensor(ex['gt_trajs']), out['costvolume'][:, rf:], occ,
+                        out['hdmap'], torch.tensor([1]), torch.as_tensor(ex['target_points'])]
+            _, traj = model.plan(*args)
+        outs['cpu' if dev == 'cpu' else 'cuda'] = (out, args, traj)
+    for key in ('segmentation', 'pedestrian', 'hdmap', 'costvolume', 'cam_front'):
+        torch.testing.assert_close(outs['cuda'][0][key].cpu(), outs['cpu'][0][key],
+                                   atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(outs['cuda'][2].cpu(), outs['cpu'][2], atol=2e-3, rtol=1e-3)
+
+
 def _decode_case(seed, b=2, t=3, h=64, w=56):
     """Decoder-like heads: gaussian center blobs with offsets toward them
     and foreground discs, plus one crowded frame (more than 100 isolated

@@ -424,14 +424,16 @@ def test_wrappers_refuse_bad_arguments_and_non_cpu_non_cuda_devices():
         K4.lift_splat_frames(*(t.to('meta') for t in (ctx, dp, lranks, rays)), 100)
 
 
-_FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stp3_tpu', '__graft_entry__', 'PIL')
+_FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stp3_tpu', '__graft_entry__', 'PIL',
+            'cv2')
 
 
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one imported jax in conftest.py): the
-    port's modules pull in nothing of jax, flax, optax, orbax, stp3_tpu or
-    PIL (the card's machine has no PIL), nor PyYAML at import time (nor
-    has it PyYAML: only ``CfgNode.merge_from_file`` imports it)."""
+    port's modules, the weight-interchange CLIs and the CARLA agent among
+    them, pull in nothing of jax, flax, optax, orbax, stp3_tpu, PIL or cv2
+    (the card's machine has neither PIL nor cv2), nor PyYAML at import
+    time (nor has it PyYAML: only ``CfgNode.merge_from_file`` imports it)."""
     code = (
         'import json, sys\n'
         'before = set(sys.modules)\n'
@@ -444,6 +446,10 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch.metrics, stp3_tpu_torch.utils.instance_jit\n'
         'import stp3_tpu_torch.training.checkpoint, stp3_tpu_torch.datas.dataloaders\n'
         'import stp3_tpu_torch.train, stp3_tpu_torch.evaluate\n'
+        'import stp3_tpu_torch.utils.torch_import, stp3_tpu_torch.carla_agent\n'
+        'import stp3_tpu_torch.scripts.import_torch_checkpoint\n'
+        'import stp3_tpu_torch.scripts.export_torch_checkpoint\n'
+        'import stp3_tpu_torch.scripts.import_backbone\n'
         'new = set(sys.modules) - before\n'
         f'print(json.dumps(sorted(m for m in new if m.split(".")[0] in {_FOREIGN + ("yaml",)!r})))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
