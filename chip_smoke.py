@@ -10,6 +10,13 @@ Phases, each printing one line (or a few) before the last:
      lift + splat (K4) and the fused ConvNeXt MLP (K2) from csrc/, one
      nvcc per source, all three at once; each kernel's registers, shared
      memory and spills as ptxas reports them;
+  [image_io]: the host C codec of the datasets (csrc/image_codec.c, built
+     with cc): the committed 1600x900 camera JPEG
+     (tests/data/camera_1600x900.jpg) decoded to the SHA-256 of Pillow's
+     decode stored beside it, its nuScenes resize + crop to Pillow's;
+     PNGs of every mode with all five row filters read back exactly; the
+     resampler against its plain version; the host's ms a decode and a
+     resize + crop;
   3. K1 vs its plain version at the serving (F=3) and training (F=6)
      splat shapes, ranks from the flagship rig's real geometry, and at the
      agent's single-frame splat (F=1, the CARLA rig); times of both and of
@@ -115,7 +122,19 @@ Phases, each printing one line (or a few) before the last:
      launches per tick as [agent]'s default (static) mode, the tick p50
      beside [agent]'s plan_step p50; then the
      harness with the model cast to bf16: its tick p50 and how many of 20
-     planned ticks select another candidate than fp32.
+     planned ticks select another candidate than fp32;
+ 23. [nuscenes_data]: the nuScenes Planning stage with LIFT.GT_DEPTH at
+     full width (6 cameras at 1600x900 -> 224x480, 3 past and 6 future
+     frames, the 200x200 BEV) on the PIL-free stand-in tree of
+     tests/torch_fake_datasets.py through prepare_dataloaders: ms a
+     __getitem__, the loader's samples/s with N_WORKERS (8) process
+     workers, then 10 train steps on its batches (K1 and K3 once a step,
+     K2 twice; every loss term finite, 'depths' among them) and the step
+     p50 beside the loader's rate;
+ 24. [carla_data]: the same for CARLA's Planning stage on stand-in routes
+     (4 cameras at 400x300 -> 256, the topdown labels at scale 1.1, the
+     hdmap PNGs), with K1, K3 and K2 also held against their plain
+     versions at its shapes.
 With --profile, torch.profiler windows of 3 calls (device events, summed
 device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
@@ -307,7 +326,7 @@ KERNELS = (
 )
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
-         'evaluate_prediction', 'reference_import', 'carla_agent')
+         'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data')
 
 
 def counters():
@@ -486,7 +505,7 @@ def rig_geometry(cfg, device, b: int = 1, carla: bool = False):
     dim)) of the example rig and ego-motion, or of the fixed CARLA rig at
     zero ego-motion."""
     import torch
-    from stp3_tpu_torch.datas.carla import carla_cam_rig
+    from stp3_tpu_torch.datas.carla_data import carla_cam_rig
     from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
                                              create_frustum, get_geometry)
     mc = model_cfg(cfg)
@@ -1195,7 +1214,7 @@ def phase_agent(device, card):
     tick modes. Returns (K1's numbers at the agent's splat, the launches of
     one steady tick of each mode, each mode's plan_step p50 in ms)."""
     import torch
-    from stp3_tpu_torch.datas.carla import carla_cam_rig, scale_and_crop_image
+    from stp3_tpu_torch.datas.carla_data import carla_cam_rig, scale_and_crop_image
     from stp3_tpu_torch.deploy.agent_core import AgentCore
     from stp3_tpu_torch.models.stp3 import context_depth_rays, lift_depth_context
     from stp3_tpu_torch.ops.bev_pool import prewarped_ranks, project_to_birds_eye_view
@@ -2215,6 +2234,175 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     return launches
 
 
+# the real-data paths: nuScenes' Planning stage with the depth label, and
+# CARLA's, each over its PIL-free stand-in tree (tests/torch_fake_datasets.py)
+NUSCENES_DATA = {'DATASET': {'NAME': 'nuscenes', 'VERSION': 'mini'},
+                 'LIFT': {'GT_DEPTH': True}, 'WORKER_KIND': 'process'}
+CARLA_DATA = {'DATASET': {'NAME': 'carla'}, 'WORKER_KIND': 'process'}
+
+
+def fake_datasets(repo: str):
+    """tests/torch_fake_datasets.py (no PIL, no cv2, no JAX), importable by
+    this process and by the loaders' spawned workers."""
+    tests = os.path.join(repo, 'tests')
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_fake_datasets
+    return torch_fake_datasets
+
+
+def phase_image_io(repo: str, card: str) -> None:
+    """[image_io]: the host C codec (csrc/image_codec.c, built with cc):
+    the committed 1600x900 camera fixture decoded to the SHA-256 of
+    Pillow's decode stored beside it, and its nuScenes resize (bilinear,
+    0.3) + crop to the SHA-256 of Pillow's; PNGs of every mode written with
+    every row filter read back exactly; the resampler against its numpy
+    plain version; the host's wall-clock ms of a decode and of a resize +
+    crop."""
+    import hashlib
+    from stp3_tpu_torch.datas.nuscenes_data import resize_and_crop_image
+    from stp3_tpu_torch.utils import image_io
+    fake = fake_datasets(repo)
+    info = image_io.load()
+    say(f"[image_io] image_codec.c {'built' if info['built'] else 'reused'} in "
+        f"{info['seconds']:.2f} s -> {os.path.relpath(info['path'], repo)}")
+    meta = fake.camera_meta()
+    img = image_io.read_jpeg(fake.CAMERA_JPEG)
+    digest = hashlib.sha256(img.tobytes()).hexdigest()
+    if list(img.shape) != meta['decode']['shape'] or digest != meta['decode']['sha256']:
+        fail(f'[image_io] the fixture decodes to {img.shape} {digest}, Pillow to '
+             f"{meta['decode']}")
+    key = 'resize_bilinear_480x270_crop_0_46_480_270'
+    crop = resize_and_crop_image(img, (480, 270), (0, 46, 480, 270))
+    if hashlib.sha256(crop.tobytes()).hexdigest() != meta[key]['sha256']:
+        fail('[image_io] the resize + crop of the fixture differs from Pillow\'s')
+    rng = np.random.RandomState(SEED)
+    shapes = {'L': (300, 400), 'P': (300, 400), 'LA': (300, 400, 2), 'RGB': (300, 400, 3),
+              'RGBA': (300, 400, 4)}
+    for mode, shape in shapes.items():
+        arr = rng.randint(0, 256, shape, np.uint8)
+        got, got_mode = image_io.decode_png(fake.png_bytes(arr, mode))
+        if got_mode != mode or not np.array_equal(got, arr):
+            fail(f'[image_io] a {mode} PNG does not read back exactly')
+    for size, filt in (((480, 270), 'bilinear'), ((232, 232), 'nearest'), ((363, 272), 'bicubic')):
+        src = img if filt != 'nearest' else img[:256, :256, 0]
+        if not np.array_equal(image_io.resample(src, size, filt),
+                              image_io.resample_plain(src, size, filt)):
+            fail(f'[image_io] {filt} resample to {size} differs from its plain version')
+    data = image_io.read_bytes(fake.CAMERA_JPEG)
+    decode_ms = wall_ms(lambda: image_io.decode_jpeg(data), 10)
+    resize_ms = wall_ms(lambda: resize_and_crop_image(img, (480, 270), (0, 46, 480, 270)),
+                               10)
+    say(f'[image_io] the 1600x900 fixture decodes to Pillow\'s SHA-256 and its resize + crop to '
+        f'Pillow\'s; PNGs L / P / LA / RGB / RGBA with all five row filters read back exactly; '
+        f'bilinear, nearest and bicubic equal their plain versions. Host wall clock (median of '
+        f'10): {decode_ms:.2f} ms a 1600x900 decode, {resize_ms:.2f} ms a resize to 480x270 + '
+        f'crop, on {os.cpu_count()} host cores beside {card}')
+
+
+def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
+    """[nuscenes_data] / [carla_data]: a stage's training on its dataset
+    class through ``prepare_dataloaders``: ms per ``__getitem__`` (median
+    of 4, in this process), the loader's samples/s with cfg.N_WORKERS
+    process workers (an epoch without training, after one that starts the
+    pool), then ``epochs`` epochs of train steps on the loader's batches
+    (launches counted over them; every loss term finite), the step p50
+    beside the loader's rate. Returns the launches."""
+    import torch
+    from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
+    from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
+    t0 = time.perf_counter()
+    trainloader, valloader, traindata, _ = prepare_dataloaders(cfg, return_dataset=True)
+    try:
+        n, b, workers = len(traindata), int(cfg.BATCHSIZE), int(cfg.N_WORKERS)
+        if len(trainloader) < 3:
+            fail(f'[{tag}] {n} training samples: too few for the train steps')
+        get_ms = wall_ms(lambda: traindata[0], 4)
+        sample = traindata[0]
+        say(f'[{tag}] {type(traindata).__name__}: {n} training samples, built in '
+            f'{time.perf_counter() - t0:.2f} s; a sample: ' + ', '.join(
+                f'{k} {tuple(v.shape)} {v.dtype}' for k, v in sample.items()
+                if k in ('image', 'depths', 'segmentation', 'hdmap', 'sample_trajectory')))
+        t0 = time.perf_counter()
+        for _ in trainloader:                                       # starts the pool
+            pass
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        count = sum(int(batch['image'].shape[0]) for batch in trainloader)
+        loader_s = time.perf_counter() - t0
+        rate = count / loader_s
+        say(f'[{tag}] __getitem__ {get_ms:.1f} ms (median of 4, one process); the loader with '
+            f'{workers} process workers: {rate:.2f} samples/s ({count} samples in '
+            f'{loader_s:.2f} s, its first epoch with the pool\'s start {first_s:.2f} s), on '
+            f'{os.cpu_count()} host cores')
+
+        trainer = Trainer(cfg, device=device, seed=SEED)
+        times, losses = [], []
+        t0 = time.perf_counter()
+        reset_launches()
+        for _ in range(epochs):
+            for batch in trainloader:
+                batch = batch_to_device(batch, device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(trainer.train_step(batch))
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        launches = read_launches()
+        loop_s = time.perf_counter() - t0
+        steps = len(times)
+        expect_launches(f'[{tag}] {steps} train steps', launches, bev_splat=steps,
+                        gather_rows=steps, convnext_mlp=2 * steps)
+        for i, loss in enumerate(losses):
+            bad = [k for k, v in loss.items() if not torch.isfinite(v).all()]
+            if bad:
+                fail(f'[{tag}] step {i}: loss terms {bad} are not finite')
+        if cfg.LIFT.GT_DEPTH and 'depths' not in losses[-1]:
+            fail(f'[{tag}] GT_DEPTH is on but the step has no depth loss')
+        p50 = float(np.median(times[1:]))
+        feeds = rate >= b / p50 * 1e3
+        say(f'[{tag}] {steps} train steps on the loader\'s batches, every loss term finite '
+            f'({", ".join(sorted(losses[-1]))}); launches {launches}; step p50 {p50:.2f} ms '
+            f'(median of the {steps - 1} after the first, CUDA events; spread '
+            f'{min(times):.2f}-{max(times):.2f}), {b / p50 * 1e3:.3f} samples/s against the '
+            f'loader\'s {rate:.2f}: the loader {"can" if feeds else "cannot"} feed the card; the '
+            f'loop (loader, copies, steps) {steps * b / loop_s:.3f} samples/s; on {card}')
+        del trainer
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        trainloader.close()
+        valloader.close()
+
+
+def phase_real_data(repo: str, device, card: str) -> dict:
+    """The stand-in trees under build/chip_smoke/, then [nuscenes_data]
+    (the Planning stage with LIFT.GT_DEPTH: 6 cameras at 1600x900 -> 224x480,
+    3 past and 6 future frames, the 200x200 BEV; 'mini': 10 windows) and
+    [carla_data] (CARLA's Planning stage: 4 cameras at 400x300 -> 256, the
+    topdown labels at scale 1.1, the hdmap PNGs; 10 training windows).
+    Returns their launches."""
+    import shutil
+    fake = fake_datasets(repo)
+    root = os.path.join(repo, 'build', 'chip_smoke', 'data')
+    shutil.rmtree(root, ignore_errors=True)
+    nusc_root, carla_root = os.path.join(root, 'nuscenes'), os.path.join(root, 'carla')
+    t0 = time.perf_counter()
+    fake.install(n_samples=18)                     # 18 samples: 10 windows of 3 + 6
+    fake.write_carla_route(carla_root, n_frames=17, town='Town01_tiny')
+    fake.write_carla_route(carla_root, n_frames=9, town='Town05_short')
+    say(f'[real data] stand-in trees written in {time.perf_counter() - t0:.2f} s')
+    launches = {}
+    cfg = make_cfg(PLANNING_STAGE, NUSCENES_DATA,
+                   {'DATASET': {'DATAROOT': nusc_root, 'MAP_FOLDER': nusc_root}})
+    launches['nuscenes_data'] = phase_dataset('nuscenes_data', cfg, device, card)
+    cfg = make_cfg(CARLA_PLANNING, CARLA_DATA, {'DATASET': {'DATAROOT': carla_root}})
+    launches['carla_data'] = phase_dataset('carla_data', cfg, device, card)
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2233,6 +2421,7 @@ def main() -> None:
         f'cudnn {torch.backends.cudnn.allow_tf32}')
 
     build_kernels(repo)
+    phase_image_io(repo, card)
 
     cfg, train_cfg = flagship_cfg(), planning_cfg()
     b = int(train_cfg.BATCHSIZE)
@@ -2259,8 +2448,15 @@ def main() -> None:
     # the CLI paths: training and its val forwards at the training shapes, the
     # evaluations at batch 1 (K1 at the serving splat of the same rig; K2 at
     # the Prediction stage's own rows)
+    # the nuScenes dataset path trains the Planning stage at the training
+    # shapes; CARLA's Planning stage at batch 2 splats 4 cameras of 256x256
+    carla_cfg = carla_planning_cfg()
     for name in ('bev_splat', 'convnext_mlp', 'gather_rows'):
         report[name]['train_cli'] = report[name]['train']
+        report[name]['nuscenes_data'] = report[name]['train']
+    report['bev_splat']['carla_data'] = phase_k1(carla_cfg, device, 'carla_data', b)
+    report['gather_rows']['carla_data'] = phase_k3(carla_cfg, device, 'carla_data')
+    report['convnext_mlp']['carla_data'] = phase_k2(carla_cfg, device, 'carla_data', b)
     for name in ('bev_splat', 'convnext_mlp'):
         report[name]['evaluate_planning'] = report[name]['serving']
         report[name]['reference_import'] = report[name]['serving']
@@ -2310,6 +2506,7 @@ def main() -> None:
     phase_labels_as_prediction(*phase_decode(pred_ckpt, device, card), device, card)
     launches['reference_import'] = phase_reference_import(device, card, repo)
     launches['carla_agent'] = phase_carla_agent(device, card, repo, per_tick, agent_p50)
+    launches.update(phase_real_data(repo, device, card))
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')
     for name, *_, main_path in KERNELS:

@@ -5,8 +5,12 @@ reference stp3/datas/dataloaders.py:8-42).
   * 'synthetic': procedural scenes, no external data; ``DATASET.VERSION
     mini`` gives 10 training samples (else 64), ``DATASET.VAL_SAMPLES``
     sets the validation set's size (0: max(4, n_train // 4));
-  * 'nuscenes', 'carla': not ported yet (ROADMAP queue 1, the dataset
-    classes: they read images through PIL, which the card's machine lacks).
+  * 'nuscenes': ``datas/nuscenes_data.py`` over ``DATASET.DATAROOT``
+    (``v1.0-{DATASET.VERSION}``) and the maps under ``DATASET.MAP_FOLDER``;
+    needs the nuscenes-devkit. ``DATASET.VERSION mini`` keeps the first
+    10 training windows;
+  * 'carla': ``datas/carla_data.py`` over the route dumps under
+    ``DATASET.DATAROOT``.
 """
 from __future__ import annotations
 
@@ -20,14 +24,29 @@ def prepare_dataloaders(cfg, return_dataset: bool = False, split: str = 'both',
     ``world``: this process's share of a multi-process run
     (``cfg.BATCHSIZE`` is per process)."""
     name = cfg.DATASET.NAME
-    if name != 'synthetic':
-        raise NotImplementedError(
-            f'DATASET.NAME {name!r}: the nuScenes and CARLA dataset classes are not ported to '
-            f'stp3_tpu_torch yet (ROADMAP queue 1, the dataset classes)')
-    n_train = 10 if cfg.DATASET.VERSION == 'mini' else 64
-    traindata = SyntheticDataset(cfg, n_samples=n_train, seed=0) if split != 'val' else None
-    n_val = int(cfg.DATASET.get('VAL_SAMPLES', 0)) or max(4, n_train // 4)
-    valdata = SyntheticDataset(cfg, n_samples=n_val, seed=1)
+    need_train = split != 'val'
+    traindata = None
+    if name == 'synthetic':
+        n_train = 10 if cfg.DATASET.VERSION == 'mini' else 64
+        if need_train:
+            traindata = SyntheticDataset(cfg, n_samples=n_train, seed=0)
+        n_val = int(cfg.DATASET.get('VAL_SAMPLES', 0)) or max(4, n_train // 4)
+        valdata = SyntheticDataset(cfg, n_samples=n_val, seed=1)
+    elif name == 'nuscenes':
+        from stp3_tpu_torch.datas.nuscenes_data import FuturePredictionDataset, make_nusc
+        nusc = make_nusc(cfg)
+        if need_train:
+            traindata = FuturePredictionDataset(nusc, 0, cfg)
+            if cfg.DATASET.VERSION == 'mini':
+                traindata.indices = traindata.indices[:10]
+        valdata = FuturePredictionDataset(nusc, 1, cfg)
+    elif name == 'carla':
+        from stp3_tpu_torch.datas.carla_data import CarlaDataset
+        if need_train:
+            traindata = CarlaDataset(cfg.DATASET.DATAROOT, True, cfg)
+        valdata = CarlaDataset(cfg.DATASET.DATAROOT, False, cfg)
+    else:
+        raise NotImplementedError(f'DATASET.NAME {name!r}')
 
     kw = dict(num_workers=int(cfg.N_WORKERS), use_processes=cfg.WORKER_KIND == 'process',
               rank=rank, world=world)

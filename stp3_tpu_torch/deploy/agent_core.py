@@ -20,8 +20,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from stp3_tpu_torch.datas.carla import (CARLA_CMD_TO_CODE, CMD_LANE, carla_cam_rig,
-                                        scale_and_crop_image)
+from stp3_tpu_torch.datas.carla_data import (CARLA_CMD_TO_CODE, CMD_LANE, carla_cam_rig,
+                                             scale_and_crop_image)
 from stp3_tpu_torch.deploy.control import PIDController, control_pid
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters, create_frustum

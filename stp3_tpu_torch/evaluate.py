@@ -61,7 +61,10 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
     try:
         trainer = Trainer(cfg, device=device)
         state = ckpt_lib.load_checkpoint(checkpoint_path, map_location=device)
-        trainer.model.load_state_dict(state['model'])
+        # the evaluation runs without LIFT.GT_DEPTH (as the JAX package's): a
+        # checkpoint trained with it also holds the depth loss's weight
+        weights = {k: v for k, v in state['model'].items() if k != 'depths_weight'}
+        trainer.model.load_state_dict(weights)
         log(f'Loaded weights from {ckpt_lib.resolve_checkpoint_path(checkpoint_path)} '
             f'(step {state["step"]}) on {device}')
 

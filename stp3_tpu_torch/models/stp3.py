@@ -238,8 +238,6 @@ def _check_supported(c: STP3Config) -> None:
     if tags - {'encoder'}:
         raise NotImplementedError(f"MODEL.REMAT={c.remat!r} is not ported yet (only 'none' "
                                   "and 'encoder'; the other stages are on ROADMAP.md queue 1)")
-    if c.gt_depth:
-        raise NotImplementedError('LIFT.GT_DEPTH=True is not ported yet')
     if c.temporal_name not in ('temporal_block', 'identity'):
         raise NotImplementedError(f'Temporal module {c.temporal_name}')
     if c.temporal_name == 'temporal_block' and c.receptive_field < 2:
@@ -293,6 +291,7 @@ class STP3(nn.Module):
         names = ['segmentation']
         names += ['pedestrian'] if c.predict_pedestrian else []
         names += ['hdmap'] if c.perceive_hdmap else []
+        names += ['depths'] if c.gt_depth else []
         names += ['centerness', 'offset'] if c.predict_instance else []
         names += ['flow'] if c.predict_future_flow else []
         names += ['planning'] if c.planning_enabled else []

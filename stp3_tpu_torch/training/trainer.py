@@ -39,7 +39,8 @@ import torch
 from torch.func import functional_call
 
 from stp3_tpu_torch.layers.base import init_parameters
-from stp3_tpu_torch.losses import hdmap_loss, segmentation_loss, spatial_regression_loss
+from stp3_tpu_torch.losses import (depth_loss, hdmap_loss, segmentation_loss,
+                                   spatial_regression_loss)
 from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
@@ -105,6 +106,13 @@ class Trainer:
         ego = batch['future_egomotion']
         labels = {'hdmap': batch['hdmap'][:, rf - 1].to(torch.int32),
                   'gt_trajectory': batch['gt_trajectory']}
+        if cfg.LIFT.GT_DEPTH:
+            # the depth bin of each feature pixel: every DOWNSAMPLE-th image
+            # pixel of the past frames, clipped into D_BOUND
+            down = cfg.MODEL.ENCODER.DOWNSAMPLE
+            lo, hi = cfg.LIFT.D_BOUND[0], cfg.LIFT.D_BOUND[1]
+            d = batch['depths'][:, :rf, :, ::down, ::down].clamp(lo, hi - 1)
+            labels['depths'] = (d - lo).to(torch.int32)
 
         def warp_split(x):
             """past frames warped forward, future frames warped back"""
@@ -157,6 +165,9 @@ class Trainer:
             weighted('instance_offset', 'offset', spatial_regression_loss(
                 output['instance_offset'], labels['offset'], 1, rf, cfg.FUTURE_DISCOUNT,
                 cfg.DATASET.IGNORE_INDEX))
+        if cfg.LIFT.GT_DEPTH:
+            weighted('depths', 'depths', depth_loss(output['depth_prediction'],
+                                                    labels['depths']))
         if cfg.INSTANCE_FLOW.ENABLED:
             weighted('instance_flow', 'flow', spatial_regression_loss(
                 output['instance_flow'], labels['flow'], 1, rf, cfg.FUTURE_DISCOUNT,

@@ -1,5 +1,6 @@
-"""Planar pose helpers (the port's own copy of the part of
-stp3_tpu/utils/quaternion.py the agent uses; numpy only)."""
+"""Pose helpers (the port's own copy of stp3_tpu/utils/quaternion.py:
+the planar ones the agent uses, the quaternion ones the datasets use;
+numpy only, on the host)."""
 from __future__ import annotations
 
 import numpy as np
@@ -39,3 +40,61 @@ def se2_egomotion_vec(xs, ys, thetas) -> np.ndarray:
         out.append(mat2pose_vec_np(fe))
     out.append(np.zeros(6, np.float32))
     return np.stack(out)
+
+
+# ---- quaternions (w, x, y, z), as in the nuScenes tables; the datasets'
+# replacement of pyquaternion, as in stp3_tpu/utils/quaternion.py
+
+def quat_to_rotation_matrix(q) -> np.ndarray:
+    """3x3 rotation of a (not necessarily unit) quaternion."""
+    w, x, y, z = np.asarray(q, dtype=np.float64)
+    n = w * w + x * x + y * y + z * z
+    if n < 1e-12:
+        return np.eye(3)
+    s = 2.0 / n
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return np.array([
+        [1.0 - (yy + zz), xy - wz, xz + wy],
+        [xy + wz, 1.0 - (xx + zz), yz - wx],
+        [xz - wy, yz + wx, 1.0 - (xx + yy)],
+    ])
+
+
+def quat_inverse(q) -> np.ndarray:
+    w, x, y, z = np.asarray(q, dtype=np.float64)
+    n = w * w + x * x + y * y + z * z
+    return np.array([w, -x, -y, -z]) / n
+
+
+def quat_yaw(q) -> float:
+    """Yaw about +z: the angle of the rotated x axis in the xy plane (the
+    devkit's quaternion_yaw)."""
+    v = quat_to_rotation_matrix(q) @ np.array([1.0, 0.0, 0.0])
+    return float(np.arctan2(v[1], v[0]))
+
+
+def yaw_quat(yaw: float) -> np.ndarray:
+    return np.array([np.cos(yaw / 2.0), 0.0, 0.0, np.sin(yaw / 2.0)])
+
+
+def yaw_from_matrix(mat: np.ndarray) -> float:
+    """Yaw of a rotation (or 4x4 pose) matrix, xy-plane projection."""
+    v = mat[:3, :3] @ np.array([1.0, 0.0, 0.0])
+    return float(np.arctan2(v[1], v[0]))
+
+
+def transform_matrix(translation, rotation_q, inverse: bool = False) -> np.ndarray:
+    """4x4 rigid transform from a translation and a quaternion (the devkit's
+    geometry_utils.transform_matrix)."""
+    tm = np.eye(4)
+    rot = quat_to_rotation_matrix(rotation_q)
+    t = np.asarray(translation, dtype=np.float64)
+    if inverse:
+        tm[:3, :3] = rot.T
+        tm[:3, 3] = -rot.T @ t
+    else:
+        tm[:3, :3] = rot
+        tm[:3, 3] = t
+    return tm

@@ -20,7 +20,7 @@ from stp3_tpu.models.stp3 import STP3 as JSTP3
 from stp3_tpu.models.stp3 import STP3Config as JCfg
 from stp3_tpu.utils import quaternion as jquat
 from stp3_tpu_torch import config as tconfig
-from stp3_tpu_torch.datas import carla as tcarla
+from stp3_tpu_torch.datas import carla_data as tcarla
 from stp3_tpu_torch.deploy import control as tcontrol
 from stp3_tpu_torch.deploy.agent_core import AgentCore
 from stp3_tpu_torch.models.stp3 import STP3 as TSTP3
@@ -81,8 +81,9 @@ def test_crop_matches_the_pil_path(crop):
     want = jcarla.scale_and_crop_image(Image.fromarray(img), scale=1.0, crop=crop)
     got = tcarla.scale_and_crop_image(img, scale=1.0, crop=crop)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError):
-        tcarla.scale_and_crop_image(img, scale=1.1, crop=crop)
+    # other scales resize as Pillow's default (bicubic) filter does
+    want = jcarla.scale_and_crop_image(Image.fromarray(img), scale=1.1, crop=crop)
+    np.testing.assert_array_equal(tcarla.scale_and_crop_image(img, scale=1.1, crop=crop), want)
 
 
 def test_agent_core_defaults_to_the_card():

@@ -431,9 +431,11 @@ _FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stp3_tpu', '__graft_entr
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one imported jax in conftest.py): the
     port's modules, the weight-interchange CLIs and the CARLA agent among
-    them, pull in nothing of jax, flax, optax, orbax, stp3_tpu, PIL or cv2
-    (the card's machine has neither PIL nor cv2), nor PyYAML at import
-    time (nor has it PyYAML: only ``CfgNode.merge_from_file`` imports it)."""
+    them, and the datasets with their image I/O and the PIL-free stand-in
+    data of tests/torch_fake_datasets.py, pull in nothing of jax, flax,
+    optax, orbax, stp3_tpu, PIL or cv2 (the card's machine has neither PIL
+    nor cv2), nor PyYAML at import time (nor has it PyYAML: only
+    ``CfgNode.merge_from_file`` imports it)."""
     code = (
         'import json, sys\n'
         'before = set(sys.modules)\n'
@@ -442,7 +444,11 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch.training.trainer, stp3_tpu_torch.datas.synthetic\n'
         'import stp3_tpu_torch.config, chip_smoke\n'
         'import stp3_tpu_torch.deploy.agent_core, stp3_tpu_torch.ops.kernels.lift_splat\n'
-        'import stp3_tpu_torch.ops.static_splat, stp3_tpu_torch.datas.carla\n'
+        'import stp3_tpu_torch.ops.static_splat, stp3_tpu_torch.datas.carla_data\n'
+        'import stp3_tpu_torch.datas.nuscenes_data, stp3_tpu_torch.utils.image_io\n'
+        'import stp3_tpu_torch.utils.resample\n'
+        'sys.path.insert(0, "tests")\n'
+        'import torch_fake_datasets\n'
         'import stp3_tpu_torch.metrics, stp3_tpu_torch.utils.instance_jit\n'
         'import stp3_tpu_torch.training.checkpoint, stp3_tpu_torch.datas.dataloaders\n'
         'import stp3_tpu_torch.train, stp3_tpu_torch.evaluate\n'
@@ -470,8 +476,11 @@ def _imports(path):
 
 
 def test_no_module_of_the_port_nor_chip_smoke_imports_the_jax_side():
-    """Read with ast, so a lazy import inside a function counts too."""
-    paths = [os.path.join(REPO, 'chip_smoke.py')]
+    """Read with ast, so a lazy import inside a function counts too; the
+    stand-in data that chip_smoke.py imports (tests/torch_fake_datasets.py)
+    is held to the same ban."""
+    paths = [os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'tests', 'torch_fake_datasets.py')]
     for root, _, files in os.walk(os.path.join(REPO, 'stp3_tpu_torch')):
         paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
     assert len(paths) > 30

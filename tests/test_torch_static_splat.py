@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from stp3_tpu.ops import static_splat as jss
-from stp3_tpu_torch.datas.carla import carla_cam_rig
+from stp3_tpu_torch.datas.carla_data import carla_cam_rig
 from stp3_tpu_torch.ops import static_splat as tss
 from stp3_tpu_torch.ops.bev_pool import project_to_birds_eye_view
 from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters, create_frustum,
