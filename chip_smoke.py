@@ -134,7 +134,32 @@ Phases, each printing one line (or a few) before the last:
  24. [carla_data]: the same for CARLA's Planning stage on stand-in routes
      (4 cameras at 400x300 -> 256, the topdown labels at scale 1.1, the
      hdmap PNGs), with K1, K3 and K2 also held against their plain
-     versions at its shapes.
+     versions at its shapes;
+ 25. [dp nccl]: the Planning stage (batch 2, bf16) through the
+     data-parallel Trainer over NCCL at world 1 beside the plain Trainer:
+     the all-reduce over one rank and the division by 1 leave the
+     gradients and the loss terms bit for bit, and clip + Adam on them the
+     parameters; one distributed step's launches (K1, K3, K2 twice); both
+     trainers' step p50 in turns and the 42 MB gradient all-reduce alone
+     (K3 at batch 1 and K1 at one rank's cameras are held against their
+     plain versions with the kernel phases);
+ 26. [dp 2 ranks] / [dp bn]: two ranks of this script (``--rank dp``)
+     share the card over gloo (NCCL refuses two ranks on one device):
+     the full-width Planning stage in fp32 (TF32 off, dropout off, a fixed
+     draw) at batch 1 a rank against one process at batch 2 and against
+     that step with its samples swapped (the loss terms, every gradient
+     after the all-reduce, the parameters' updates; under MODEL.NORM 'bn'
+     the running statistics), both ranks bit for bit equal; then 3 bf16
+     steps a rank, each launching K1, K3 and K2 twice;
+ 27. [cam parallel]: three ranks (``--rank cam``) on the card over gloo
+     split the flagship's 6 cameras over groups of 2 and 3, in bf16 and
+     in fp32: forward + plan, serve_step and serve_step_static against the
+     one-process port (occupancy, the selected candidate, the refined
+     trajectory), each rank's launches (K1 once a forward, never the plain
+     splat), the plan step's p50 per rank beside one process's (ranks
+     sharing one card: not a latency).
+Every multi-rank group runs under a deadline (RANKS_TIMEOUT_S): a rank that
+fails or outlives it ends the group and fails the script.
 With --profile, torch.profiler windows of 3 calls (device events, summed
 device time against the wall time, the kernels that take the most) of the
 serving and fused forward + plan, of a train step and of each agent tick
@@ -326,7 +351,8 @@ KERNELS = (
 )
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
-         'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data')
+         'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data',
+         'dp_nccl', 'dp_ranks', 'cam_parallel')
 
 
 def counters():
@@ -2403,8 +2429,497 @@ def phase_real_data(repo: str, device, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- data and camera parallel
+# the multi-rank phases share the one card over gloo (NCCL refuses two
+# ranks on one device); [dp nccl] runs NCCL at world 1 in this process
+RANKS_TIMEOUT_S = 420
+DP_WORLD = 2
+CAM_WORLD = 3
+
+
+def grad_errors(grads: dict, want: dict) -> dict:
+    """Each gradient's L2 error against ``want``'s, relative to its norm or
+    to 1e-4 of the largest gradient's norm, the larger: a gradient that is
+    zero but for rounding (a 'bn' bias whose output feeds another 'bn')
+    is held to that floor, not to its own rounding."""
+    floor = 1e-4 * max(g.double().norm().item() for g in want.values())
+    return {n: ((grads[n].double() - g.double()).norm().item()
+                / max(g.double().norm().item(), floor)) for n, g in want.items()}
+
+
+def stats_error(stats: dict, want: dict) -> float:
+    """The largest difference of the 'bn' running statistics, over the
+    largest running variance: a running mean near zero (a 'bn' after a
+    bias-free linear map of a normalised input) has no relative error."""
+    if not want:
+        return 0.0
+    scale = max(v.abs().max().item() for k, v in want.items() if k.endswith('var'))
+    return max((stats[k] - v).abs().max().item() for k, v in want.items()) / scale
+
+
+def phase_dp_nccl(cfg, device, card) -> dict:
+    """[dp nccl]: the Planning stage at full width and batch 2 (bf16
+    policy) through the data-parallel Trainer over NCCL at world 1 beside
+    the plain Trainer, from one seeded init. The reduce is an identity:
+    the plain step's gradients all-reduced over the one rank and divided
+    by 1, and the loss terms averaged, equal themselves bit for bit, and
+    both trainers' clip + Adam on them leave parameters equal bit for bit.
+    One distributed step launches K1, K3 and K2 twice. Then the p50 of
+    both trainers' steps in turns, and the all-reduce of the ~42 MB of
+    fp32 gradients (one flat call) alone. Returns one step's launches."""
+    import torch
+    import torch.distributed as dist
+    from stp3_tpu_torch.parallel import mesh
+    from stp3_tpu_torch.parallel.launch import free_port
+    from stp3_tpu_torch.training.trainer import Trainer
+    env = {'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0', 'MASTER_ADDR': '127.0.0.1',
+           'MASTER_PORT': str(free_port())}          # torchrun's environment, one rank
+    os.environ.update(env)
+    try:
+        if mesh.maybe_initialize_multihost(device) != device or (
+                device.type == 'cuda' and dist.get_backend() != 'nccl'):
+            fail('[dp nccl] the process group did not start on NCCL on the card')
+        group = mesh.data_group()
+        plain = Trainer(cfg, device=device, seed=SEED)
+        dp = Trainer(cfg, device=device, seed=SEED, group=group)
+        for (n, p), q in zip(plain.model.named_parameters(), dp.model.parameters()):
+            if not torch.equal(p, q):
+                fail(f'[dp nccl] broadcast over one rank changed {n}')
+        batches = synthetic_batches(cfg, 2, device)
+        loss = plain.compute_gradients(batches[0])
+        for p, q in zip(plain.model.parameters(), dp.model.parameters()):
+            q.grad = p.grad.clone()
+        mesh.allreduce_gradients(dp.model.parameters(), group)
+        averaged = mesh.allreduce_mean(loss, group)
+        for (n, p), q in zip(plain.model.named_parameters(), dp.model.parameters()):
+            if not torch.equal(p.grad, q.grad):
+                fail(f'[dp nccl] all-reduce / 1 changed the gradient of {n}')
+        if any(not torch.equal(averaged[k], v) for k, v in loss.items()):
+            fail('[dp nccl] the loss terms averaged over one rank changed')
+        plain.apply_gradients()
+        dp.apply_gradients()
+        same = all(torch.equal(p, q) for p, q in zip(plain.model.parameters(),
+                                                      dp.model.parameters()))
+        if not same:
+            fail('[dp nccl] clip + Adam on equal gradients left different parameters')
+        reset_launches()
+        dp.train_step(batches[1])
+        launches = read_launches()
+        expect_launches('[dp nccl] one distributed step', launches, bev_splat=1,
+                        gather_rows=1, convnext_mlp=2)
+        times = {'plain': [], 'dp': []}
+        for turn in ('plain', 'dp', 'dp', 'plain') * 2:
+            trainer = plain if turn == 'plain' else dp
+            for i in range(2):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                trainer.train_step(batches[i])
+                end.record()
+                end.synchronize()
+                times[turn].append(start.elapsed_time(end))
+        n_bytes = sum(p.grad.numel() * p.grad.element_size() for p in dp.model.parameters())
+        reduce_ms = time_ms(lambda: mesh.allreduce_gradients(dp.model.parameters(), group),
+                            warmup=2, iters=10)
+        say(f'[dp nccl] world 1 over NCCL: the gradients of {sum(1 for _ in dp.model.parameters())} '
+            f'tensors all-reduced and divided by 1, the loss terms averaged, and clip + Adam '
+            f'on them: bit for bit the plain Trainer\'s; launches of one distributed step '
+            f'{launches}')
+        say(f'[dp nccl] step p50 plain {np.median(times["plain"]):.2f} ms, distributed '
+            f'{np.median(times["dp"]):.2f} ms (8 each, in turns, CUDA events); the gradient '
+            f'all-reduce alone ({n_bytes / 1e6:.1f} MB fp32, one flat call + the copies in and '
+            f'out) p50 {reduce_ms:.3f} ms; on {card}')
+        del plain, dp, batches
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def spawn_ranks(scenario: str, world: int, repo: str) -> list:
+    """``world`` ranks of this script (``--rank scenario``) sharing card 0
+    over gloo, under a deadline; returns each rank's JSON result. A rank
+    that fails fails the phase."""
+    import torch
+    from stp3_tpu_torch.parallel.launch import run_ranks
+    out = os.path.join(repo, 'build', 'chip_smoke', f'ranks_{scenario}')
+    os.makedirs(out, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        outputs = run_ranks([sys.executable, os.path.abspath(__file__), '--rank', scenario,
+                             out], world, RANKS_TIMEOUT_S, cwd=repo, share_device=True)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f'[{scenario}] {exc}')
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f'rank{r}.json')) as f:
+            results.append(json.load(f))
+    for line in outputs[0].splitlines():
+        if line.startswith('['):
+            say(line)
+    say(f'[{scenario}] {world} ranks on one card over gloo finished in '
+        f'{time.perf_counter() - t0:.1f} s of wall time')
+    return results
+
+
+def dp_global(cfg, device):
+    """A global batch of 2 synthetic samples (host numpy) and a fixed draw."""
+    from stp3_tpu_torch.datas.synthetic import SyntheticDataset, collate
+    ds = SyntheticDataset(cfg, n_samples=2, seed=SEED)
+    batch = collate([ds[i] for i in range(2)])
+    batch['noise'] = np.random.RandomState(SEED).randn(
+        2, 1, cfg.MODEL.DISTRIBUTION.LATENT_DIM).astype(np.float32)
+    return batch
+
+
+def dp_step_numbers(trainer, batch, noise) -> dict:
+    """One step (dropout off, the draw ``noise``): the loss terms, the
+    gradients (after any all-reduce), the parameters' update and the 'bn'
+    running statistics."""
+    start = [p.detach().clone() for p in trainer.model.parameters()]
+    loss = trainer.compute_gradients(batch, noise, dropout=False)
+    grads = {n: p.grad.clone() for n, p in trainer.model.named_parameters()}
+    trainer.apply_gradients()
+    return {'loss': {k: v.item() for k, v in loss.items()}, 'grads': grads,
+            'update': [p.detach() - s for p, s in zip(trainer.model.parameters(), start)],
+            'stats': running_stats(trainer.model)}
+
+
+def dp_distance(got: dict, want: dict) -> dict:
+    """How far one step's numbers are from another's."""
+    errs = grad_errors(got['grads'], want['grads'])
+    worst = max(errs, key=errs.get)
+    return {'loss': max(abs(got['loss'][k] - v) / max(abs(v), 1e-12)
+                        for k, v in want['loss'].items()),
+            'median': float(np.median(list(errs.values()))), 'worst': errs[worst],
+            'worst_name': worst,
+            'update': float(np.median([((u - w).norm() / w.norm().clamp_min(1e-30)).item()
+                                       for u, w in zip(got['update'], want['update'])])),
+            'stats': stats_error(got['stats'], want['stats'])}
+
+
+def dp_compare(tag, cfg, device, group, rank) -> dict:
+    """One step (dropout off, a fixed draw) of a seeded init on this rank's
+    row of a global batch of 2. Rank 0 also takes the one-process step on
+    the global batch, and on it with its two samples swapped (the same
+    step summed in another order: the floor of fp32 reassociation), and
+    measures the 2-rank step's distance from the first, beside the
+    swapped step's; every rank holds its parameters and statistics to
+    rank 0's, bit for bit."""
+    import torch
+    from stp3_tpu_torch.parallel import mesh
+    from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
+    glob_np = dp_global(cfg, device)
+    ref = []
+    if rank == 0:
+        for order in ([0, 1], [1, 0]):
+            batch = batch_to_device({k: v[order] for k, v in glob_np.items()}, device)
+            noise = batch.pop('noise')
+            ref.append(dp_step_numbers(Trainer(cfg, device=device, seed=SEED), batch, noise))
+            torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device=device, seed=SEED, group=group)
+    rows = mesh.shard_batch(glob_np, device, group)
+    noise = rows.pop('noise')
+    mine_numbers = dp_step_numbers(trainer, rows, noise)
+    # every rank against rank 0, bit for bit
+    mine = torch.cat([p.detach().reshape(-1) for p in trainer.model.parameters()]
+                     + [v.reshape(-1) for v in mine_numbers['stats'].values()])
+    theirs = mine.clone()
+    torch.distributed.broadcast(theirs, src=0, group=group)
+    if not torch.equal(mine, theirs):
+        fail(f'[{tag}] rank {rank} parameters or statistics differ from rank 0\'s')
+    out = {'equal_to_rank0': True}
+    if rank == 0:
+        out.update(split=dp_distance(mine_numbers, ref[0]), swapped=dp_distance(ref[1], ref[0]),
+                   n_grads=len(ref[0]['grads']), n_stats=len(ref[0]['stats']))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_dp(out_dir: str) -> dict:
+    """One rank of [dp 2 ranks] and [dp bn] (``--rank dp``)."""
+    import torch
+    from stp3_tpu_torch.parallel import mesh
+    from stp3_tpu_torch.training.trainer import Trainer
+    device = mesh.maybe_initialize_multihost(backend='gloo')
+    group = mesh.data_group()
+    rank = mesh.process_index(group)
+    fp32 = make_cfg(PLANNING_STAGE, {'PRECISION': 32})
+    result = {'dp': dp_compare('dp 2 ranks', fp32, device, group, rank)}
+    # 3 bf16 steps through the kernels, each rank on its own batch of 1
+    trainer = Trainer(planning_cfg(), device=device, seed=SEED, group=group)
+    batch = mesh.shard_batch(dp_global(fp32, device), device, group)
+    batch.pop('noise')
+    reset_launches()
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    result['launches'] = read_launches()
+    expect_launches(f'[dp 2 ranks] rank {rank}: 3 bf16 steps', result['launches'],
+                    bev_splat=3, gather_rows=3, convnext_mlp=6)
+    if not all(torch.isfinite(v).all() for v in loss.values()):
+        fail(f'[dp 2 ranks] rank {rank}: a bf16 loss term is not finite')
+    result['bf16_ms'] = times
+    del trainer
+    torch.cuda.empty_cache()
+    result['bn'] = dp_compare('dp bn', make_cfg(PLANNING_STAGE, {'PRECISION': 32,
+                                                                 'MODEL': {'NORM': 'bn'}}),
+                              device, group, rank)
+    return result
+
+
+# each measure of the 2-rank step's distance from the one-process step
+# may reach the larger of its limit and 10 times the swapped step's distance
+DP_LIMITS = {'loss': 1e-4, 'median': 1e-3, 'worst': 1e-2, 'update': 1e-2, 'stats': 1e-3}
+
+
+def report_dp(results: list, card: str) -> dict:
+    """Gate and print [dp 2 ranks] and [dp bn] from the ranks' results.
+    fp32, TF32 off: the loss terms' relative error; each gradient's L2
+    error over its norm, or over 1e-4 of the largest gradient's norm where
+    its own is smaller (``grad_errors``), in the median and the worst; the
+    median relative error of the parameters' updates; the running
+    statistics' largest difference over the largest running variance
+    (``stats_error``). Each may reach the larger of ``DP_LIMITS`` (the
+    limits of [train parity], where an fp32 ReLU sign flip moves every
+    gradient upstream of it) and 10 times the distance of the
+    one-process step with its two samples swapped: 'bn' in fp32 forms
+    E[x^2] - E[x]^2, which reassociation moves by far more than its
+    rounding where the variance is small against the mean."""
+    for tag, key in (('dp 2 ranks', 'dp'), ('dp bn', 'bn')):
+        split, floor = results[0][key]['split'], results[0][key]['swapped']
+        limits = {m: max(lim, 10 * floor[m]) for m, lim in DP_LIMITS.items()}
+        say(f'[{tag}] 2 ranks at batch 1 over gloo vs one process at batch 2 (fp32, TF32 '
+            f'off, dropout off, a fixed draw; the one-process step with its samples swapped '
+            f'in brackets): loss terms rel {split["loss"]:.2e} [{floor["loss"]:.2e}]; '
+            f'{results[0][key]["n_grads"]} gradients after the all-reduce, median '
+            f'{split["median"]:.2e} [{floor["median"]:.2e}], worst {split["worst"]:.2e} '
+            f'({split["worst_name"]}) [{floor["worst"]:.2e}]; parameter updates median rel '
+            f'{split["update"]:.2e} [{floor["update"]:.2e}]; {results[0][key]["n_stats"]} '
+            f'running statistics {split["stats"]:.2e} [{floor["stats"]:.2e}]; limits '
+            f'{ {m: float(f"{v:.2e}") for m, v in limits.items()} }; both ranks\' parameters '
+            f'and statistics equal bit for bit')
+        over = [m for m in DP_LIMITS if split[m] > limits[m]]
+        if over:
+            fail(f'[{tag}] the 2-rank step is not the one-process global-batch step: {over}')
+    for rank, r in enumerate(results):
+        say(f'[dp 2 ranks] rank {rank}: 3 bf16 steps at batch 1, launches {r["launches"]}, '
+            f'step times {[round(t, 2) for t in r["bf16_ms"]]} ms (2 ranks sharing one '
+            f'card, not a speed), on {card}')
+    return {name: sum(r['launches'][name] for r in results) for name in results[0]['launches']}
+
+
+def occupancy(out):
+    import torch
+    return torch.logical_or(out['segmentation'].argmax(-1), out['pedestrian'].argmax(-1))
+
+
+def cam_compare(ref, got, model, trajs, commands, target, truth=None) -> dict:
+    """Occupancy agreement, the selected candidate and the refined
+    trajectory of a camera-parallel call against the one-process one;
+    with ``truth`` (the one-process fp32 occupancy) also both calls'
+    agreement with it."""
+    import torch
+    (traj_r, out_r), (traj_g, out_g) = ref, got
+    agree = (occupancy(out_r) == occupancy(out_g)).float().mean().item()
+    extra = {} if truth is None else {
+        'split_vs_fp32': (occupancy(out_g) == truth).float().mean().item(),
+        'one_vs_fp32': (occupancy(out_r) == truth).float().mean().item()}
+    sel_r = selected(model, serve_plan_args(model, out_r, trajs, commands, target))
+    sel_g = selected(model, serve_plan_args(model, out_g, trajs, commands, target))
+    finite = all(torch.isfinite(v.float()).all() for v in out_g.values()
+                 if isinstance(v, torch.Tensor)) and bool(torch.isfinite(traj_g.float()).all())
+    return {'occupancy': agree, 'same_candidate': sel_r == sel_g,
+            'traj_err': (traj_g.float() - traj_r.float()).abs().max().item(),
+            'finite': finite, **extra}
+
+
+def cam_inputs(cfg, device, dt):
+    """The flagship's forward inputs (image in ``dt``, geometry fp32), the
+    planner's, a seeded past-frame BEV cache and the fixed rig (host)."""
+    import torch
+    (image, k, e, ego), ex = example_inputs(cfg)
+    image, = to_torch((image,), device, dt)
+    k, e, ego = to_torch((k, e, ego), device)
+    trajs, gt, target = to_torch((ex['trajs'], ex['gt_trajs'], ex['target_points']), device, dt)
+    commands, = to_torch((ex['commands'],), device)
+    mc = model_cfg(cfg)
+    cache = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
+        1, mc.receptive_field - 1, *mc.bev_size, mc.encoder_out_channels)
+        .astype(np.float32)).to(device, dt)
+    rig = (k[0, -1].cpu().numpy(), e[0, -1].cpu().numpy())
+    return (image, k, e, ego), (trajs, gt, commands, target), cache, rig
+
+
+def rank_cam(out_dir: str) -> dict:
+    """One rank of [cam parallel] (``--rank cam``): the flagship at full
+    width, in fp32 (TF32 off) and in bf16 (the serving policy), split
+    over 2 and over 3 ranks; rank 0 also runs the one-process port on the
+    same inputs, and keeps the fp32 occupancy to hold the bf16 calls to.
+    Each rank counts its launches of each call."""
+    import torch
+    from stp3_tpu_torch.ops.static_splat import build_column_splat_plan
+    from stp3_tpu_torch.parallel import mesh, serving
+    device = mesh.maybe_initialize_multihost(backend='gloo')
+    rank = mesh.process_index(mesh.data_group())
+    cfg = flagship_cfg()
+    groups = {n: serving.cam_mesh(n) for n in (2, CAM_WORLD)}
+    result, truth = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = build_model(cfg).to(device=device, dtype=dt)
+        (image, k, e, ego), (trajs, gt, commands, target), cache, rig = cam_inputs(
+            cfg, device, dt)
+        present = (image[:, -1], k[:, -1], e[:, -1])
+        numbers = {}
+        with torch.inference_mode():
+            if rank == 0:
+                arrays = build_column_splat_plan(model.frustum, *rig, model.bev_resolution,
+                                                 model.bev_start_position,
+                                                 model.bev_dimension).device_arrays(device)
+                ref = {'plan': plan_step(model, image, k, e, ego, trajs, gt, commands,
+                                         target)[::-1],
+                       'serve': model.serve_step(*present, ego, cache, trajs, commands,
+                                                 target)[:2],
+                       'static': model.serve_step_static(image[:, -1], ego, cache, trajs,
+                                                         commands, target, arrays)[:2]}
+                if dt == torch.float32:
+                    truth = {name: occupancy(out) for name, (_, out) in ref.items()}
+                else:
+                    numbers['one_ms'] = time_ms(lambda: plan_step(
+                        model, image, k, e, ego, trajs, gt, commands, target), 2, 5)
+        k2 = 2 if dt == torch.bfloat16 else 0              # fp32 takes the unfused MLP
+        for n_shards, group in groups.items():
+            if rank >= n_shards:
+                continue
+            fwd = serving.make_cam_parallel_forward(model, group)
+            step = serving.make_cam_parallel_plan_step(model, group)
+            serve = serving.make_cam_parallel_serve_step(model, group)
+            static = serving.make_cam_parallel_serve_step_static(model, group, *rig)
+            calls = {  # plan: the plan step (for the trajectory), the forward (the heads)
+                'plan': (lambda: (step(image, k, e, ego, trajs, gt, commands, target),
+                                  fwd(image, k, e, ego)), dict(bev_splat=2, convnext_mlp=2 * k2)),
+                'serve': (lambda: serve(*present, ego, cache, trajs, commands, target)[:2],
+                          dict(bev_splat=1, convnext_mlp=k2)),
+                'static': (lambda: static(image[:, -1], ego, cache, trajs, commands,
+                                          target)[:2], dict(convnext_mlp=k2))}
+            split = {}
+            with torch.inference_mode():
+                for name, (call, want) in calls.items():
+                    reset_launches()
+                    got = call()
+                    launches = read_launches()
+                    expect_launches(f'[cam parallel] rank {rank} of {n_shards}, {dt}: {name}',
+                                    launches, **want)
+                    split[name] = {'launches': launches}
+                    if rank == 0:
+                        split[name].update(cam_compare(
+                            ref[name], got, model, trajs, commands, target,
+                            truth[name] if dt == torch.bfloat16 else None))
+                if dt == torch.bfloat16:
+                    split['plan_ms'] = time_ms(lambda: step(image, k, e, ego, trajs, gt,
+                                                            commands, target), 2, 5)
+            numbers[str(n_shards)] = split
+        result[str(dt).replace('torch.', '')] = numbers
+        del model
+        torch.cuda.empty_cache()
+    mesh.coordination_barrier()
+    return result
+
+
+def cam_shard_ranks(cfg, device, n_shards: int):
+    """(F = rf, P) ranks of one rank's cameras (the first N / n_shards of
+    the flagship rig), pre-warped as the model splats them."""
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
+    geometry, ego, (res, start, dim) = rig_geometry(cfg, device)
+    nl = geometry.shape[2] // n_shards
+    return prewarped_ranks(geometry[:, :, :nl].contiguous(), ego, res, start, dim)
+
+
+# [cam parallel]'s limits in fp32: the share of occupancy cells that must
+# agree with one process and the refined trajectory's largest difference
+CAM_OCCUPANCY = 0.9999
+CAM_TRAJ_M = 1e-3
+
+
+def report_cam(results: list, card: str) -> dict:
+    """Gate and print [cam parallel]. In fp32 the split sums the same
+    partial grids in another order: occupancy agrees with one process on
+    99.99% of the cells, the same candidate is selected and the refined
+    trajectory is within 1e-3 m. Under bf16 each rank's partial grid is
+    rounded to bf16 before the sum, a rounding the one-process step does
+    not take, and a random-weight model's logits are near ties in many
+    cells: the split's occupancy may disagree with the fp32 one-process
+    occupancy on at most twice as many cells as the bf16 one-process step
+    does, plus 0.1% of the cells; every output finite; the agreement with
+    the bf16 one-process step, the candidate and the trajectory printed."""
+    launches = {}
+    for dt, numbers in results[0].items():
+        for n_shards in ('2', str(CAM_WORLD)):
+            for name in ('plan', 'serve', 'static'):
+                r = numbers[n_shards][name]
+                if dt == 'float32':
+                    gate = (f'(limit {CAM_OCCUPANCY}); refined trajectory max |diff| '
+                            f'{r["traj_err"]:.3e} m (limit {CAM_TRAJ_M})')
+                    bad = (r['occupancy'] < CAM_OCCUPANCY or not r['same_candidate']
+                           or r['traj_err'] > CAM_TRAJ_M)
+                else:
+                    limit = 1 - 2 * (1 - r['one_vs_fp32']) - 1e-3
+                    gate = (f'against one bf16 process; with the fp32 one-process occupancy '
+                            f'{r["split_vs_fp32"]:.6f} (limit {limit:.6f}; one bf16 process '
+                            f'{r["one_vs_fp32"]:.6f}); refined trajectory max |diff| '
+                            f'{r["traj_err"]:.3e} m')
+                    bad = r['split_vs_fp32'] < limit
+                say(f'[cam parallel] {dt}, {n_shards} ranks, {name}: occupancy agreement '
+                    f'{r["occupancy"]:.6f} {gate}; same candidate {r["same_candidate"]}; '
+                    f'finite {r["finite"]}')
+                if bad or not r['finite']:
+                    fail(f'[cam parallel] {dt}, {n_shards} ranks, {name}: not the one-process '
+                         f'result')
+    for n_shards in ('2', str(CAM_WORLD)):
+        ranks = [res['bfloat16'][n_shards] for res in results if n_shards in res['bfloat16']]
+        say(f'[cam parallel] bf16, {n_shards} ranks: K1 launches per rank (plan step + '
+            f'forward, serve_step, serve_step_static) '
+            f'{[[r[m]["launches"]["bev_splat"] for m in ("plan", "serve", "static")] for r in ranks]}'
+            f'; plan step p50 per rank {[round(r["plan_ms"], 2) for r in ranks]} ms against '
+            f'one process\'s {results[0]["bfloat16"]["one_ms"]:.2f} ms (ranks sharing one card '
+            f'over gloo: not a latency), on {card}')
+    for res in results:
+        for numbers in res.values():
+            for split in numbers.values():
+                if not isinstance(split, dict):
+                    continue
+                for name in ('plan', 'serve', 'static'):
+                    for kname, v in split[name]['launches'].items():
+                        launches[kname] = launches.get(kname, 0) + v
+    return launches
+
+
+def rank_main(scenario: str, out_dir: str) -> None:
+    """A rank of a multi-rank phase (``--rank dp|cam OUT_DIR``), started by
+    ``spawn_ranks`` with torchrun's environment."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this script needs an NVIDIA GPU')
+    result = {'dp': rank_dp, 'cam': rank_cam}[scenario](out_dir)
+    with open(os.path.join(out_dir, f'rank{os.environ["RANK"]}.json'), 'w') as f:
+        json.dump(result, f)
+
+
 def main() -> None:
     import torch
+    if sys.argv[1:2] == ['--rank']:
+        rank_main(sys.argv[2], sys.argv[3])
+        return
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is false: this script needs an NVIDIA GPU')
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -2507,6 +3022,21 @@ def main() -> None:
     launches['reference_import'] = phase_reference_import(device, card, repo)
     launches['carla_agent'] = phase_carla_agent(device, card, repo, per_tick, agent_p50)
     launches.update(phase_real_data(repo, device, card))
+    # data parallel and camera parallel: K1, K3 and K2 at the training shapes
+    # of batch 2 ([dp nccl]) and of batch 1 (each rank of [dp 2 ranks]); K1 at
+    # one rank's cameras of the 2-way split and K2 at the serving rows
+    for name in ('bev_splat', 'convnext_mlp', 'gather_rows'):
+        report[name]['dp_nccl'] = report[name]['train']
+    report['bev_splat']['dp_ranks'] = report['bev_splat']['serving']
+    report['convnext_mlp']['dp_ranks'] = report['convnext_mlp']['serving']
+    report['gather_rows']['dp_ranks'] = phase_k3(make_cfg(PLANNING_STAGE, {'BATCHSIZE': 1}),
+                                                 device, 'dp_ranks')
+    report['bev_splat']['cam_parallel'] = phase_k1(cfg, device, 'cam_parallel',
+                                                   ranks=cam_shard_ranks(cfg, device, 2))
+    report['convnext_mlp']['cam_parallel'] = report['convnext_mlp']['serving']
+    launches['dp_nccl'] = phase_dp_nccl(train_cfg, device, card)
+    launches['dp_ranks'] = report_dp(spawn_ranks('dp', DP_WORLD, repo), card)
+    launches['cam_parallel'] = report_cam(spawn_ranks('cam', CAM_WORLD, repo), card)
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')
     for name, *_, main_path in KERNELS:

@@ -27,6 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stp3_tpu_torch.parallel.mesh import differentiable_all_reduce
+
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
 
 
@@ -335,7 +337,15 @@ class Norm(nn.Module):
     are buffers, so the optimizer, the weight decay and the gradient clip
     never see them (the JAX trainer masks them out with ``optax.masked``).
     ``momentum`` is set from MODEL.BN_MOMENTUM by the model that owns the
-    site. ``eps`` (1e-5; 1e-3 at the EfficientNet sites) belongs to the
+    site. ``group`` (a process group, set by a data-parallel
+    ``Trainer``): the batch statistics are of the global batch, Σx, Σx²
+    and the count summed over the ranks with one differentiable
+    all-reduce (SyncBatchNorm's semantics; stp3_tpu's 'bn' under its
+    batch-sharded jit computes the same global statistics), so the
+    unbiased correction takes the global count and the running statistics
+    stay equal on every rank. Under REMAT 'encoder' the recomputation
+    joins the all-reduce again on every rank (each rank recomputes), and
+    moves no running statistic. ``eps`` (1e-5; 1e-3 at the EfficientNet sites) belongs to the
     BatchNorm kinds only.
 
     Either way ``inv = rsqrt(var + eps) * scale`` is formed in the
@@ -350,6 +360,7 @@ class Norm(nn.Module):
             raise ValueError(f'unknown norm kind {kind!r}')
         self.kind, self.eps, self.momentum = kind, eps, momentum
         self.update_running = True
+        self.group = None
         if kind == 'gn':
             self.GroupNorm_0 = GroupNorm(channels, num_groups(channels, groups))
         elif kind == 'ln':
@@ -387,14 +398,24 @@ class Norm(nn.Module):
     def _batch_stats(self, x: torch.Tensor):
         red = (0,) + tuple(range(2, x.ndim))
         x32 = x.to(stats_dtype(x))
-        mean = x32.mean(red)
-        var = ((x32 * x32).mean(red) - mean * mean).clamp_min(0.0)
+        n = x.numel() // x.shape[1]
+        if self.group is None:
+            mean = x32.mean(red)
+            mean_sq = (x32 * x32).mean(red)
+            unbiased = n / max(n - 1, 1)
+        else:
+            c = x.shape[1]
+            sums = differentiable_all_reduce(torch.cat(
+                [x32.sum(red), (x32 * x32).sum(red), x32.new_full((1,), n)]), self.group)
+            n = sums[2 * c:].detach()
+            mean, mean_sq = sums[:c] / n, sums[c:2 * c] / n
+            unbiased = n / (n - 1).clamp_min(1)
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         if self.update_running:
-            n = x.numel() // x.shape[1]
             m = self.momentum
             with torch.no_grad():
                 self.mean.mul_(1.0 - m).add_(m * mean.to(self.mean.dtype))
-                self.var.mul_(1.0 - m).add_(m * (var * (n / max(n - 1, 1))).to(self.var.dtype))
+                self.var.mul_(1.0 - m).add_(m * (var * unbiased).to(self.var.dtype))
         return mean, var
 
 

@@ -6,12 +6,26 @@ Wf, D). Weighted cross-entropy with an ignore index, future-frame
 discounting, top-k hardest pixels, masked L1/L2 regression, depth-bin
 cross-entropy and the probabilistic KL terms. As in the reference, an
 ignored pixel adds a zero to the mean's denominator.
+
+Under data parallel (``parallel/mesh.py``) each rank computes its terms
+on its own rows and the gradients are averaged over the ranks. That
+equals the global batch's gradient wherever a term is a mean over a
+per-rank tensor whose shape is the same on every rank, which holds for:
+``segmentation_loss`` (a mean over (B, S, H*W), or over the top k of each
+sample and frame, k fixed by the shape), ``hdmap_loss`` (a mean over (B,
+H*W) or its per-sample top k, per element), ``depth_loss`` (a plain mean
+over every pixel, ignored ones counting zero), ``gaussian_kl`` and
+``bernoulli_kl`` (batch means), and the planner's loss (batch means,
+``models/planning_model.py``). ``spatial_regression_loss`` divides by
+the count of unmasked pixels, which differs between ranks, so it takes
+the process ``group`` and divides by the global count.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 
@@ -68,10 +82,16 @@ def hdmap_loss(prediction: torch.Tensor, target: torch.Tensor,
 
 def spatial_regression_loss(prediction: torch.Tensor, target: torch.Tensor, norm: int,
                             n_present: int = 3, future_discount: float = 1.0,
-                            ignore_index: int = 255) -> torch.Tensor:
+                            ignore_index: int = 255, group=None) -> torch.Tensor:
     """prediction/target (B, S, H, W, C); L1 (norm=1) or MSE (norm=2),
     summed over channels, discounted, averaged over the pixels whose
-    target[..., 0] is not ignored."""
+    target[..., 0] is not ignored.
+
+    ``group`` (data parallel): the count is summed over the ranks (it
+    carries no gradient) and the result scaled by the world size, so the
+    ranks' mean of it, and of its gradient, is the global batch's. Every
+    rank joins the sum, a rank with no unmasked pixel too (its share is
+    zero)."""
     if prediction.ndim != 5:
         raise ValueError('Must be a 5D tensor')
     mask = target[..., 0] != ignore_index
@@ -85,7 +105,11 @@ def spatial_regression_loss(prediction: torch.Tensor, target: torch.Tensor, norm
     loss = loss * _future_discounts(loss.shape[1], n_present, future_discount,
                                     loss)[None, :, None, None]
     count = mask.sum()
-    mean = (loss * mask).sum() / count.clamp_min(1)
+    world = 1
+    if group is not None:
+        dist.all_reduce(count, group=group)
+        world = dist.get_world_size(group)
+    mean = (loss * mask).sum() / count.clamp_min(1) * world
     return torch.where(count > 0, mean, torch.zeros_like(mean))
 
 

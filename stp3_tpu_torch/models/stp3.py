@@ -212,7 +212,7 @@ def lift_uniform(feat: torch.Tensor, depth_channels: int) -> torch.Tensor:
 def context_depth_rays(cfg: STP3Config, feat: torch.Tensor, depth: torch.Tensor):
     """Ray-major (B, rays, C) context and (B, rays, D) depth distribution
     for the static splat plans (ray = cam*Hf*Wf + h*Wf + w). feat (B, N,
-    Hf, Wf, C); depth the encoder's flat (B*N, Hf, Wf, D) logits, unused
+    Hf, Wf, C); depth its (B, N, Hf, Wf, D) (or flat (B*N, ...)) logits, unused
     without the depth distribution (all ones, as ``lift_uniform``)."""
     b = feat.shape[0]
     ctx = feat.reshape(b, -1, feat.shape[-1])
@@ -351,6 +351,41 @@ class STP3(nn.Module):
         return checkpoint(run, dict(self.encoder.named_parameters()), image,
                           use_reentrant=False, preserve_rng_state=False)
 
+    def camera_geometry(self, intrinsics, extrinsics) -> torch.Tensor:
+        """intrinsics (..., N, 3, 3), extrinsics (..., N, 4, 4) -> the fp32
+        ego-frame points of every frustum cell (..., N, D, Hf, Wf, 3)."""
+        return get_geometry(self._frustum(intrinsics.device), intrinsics.float(),
+                            extrinsics.float())
+
+    def encode_cameras(self, image, rng=None):
+        """image (..., N, H, W, 3) -> channels-last features (..., N, Hf, Wf,
+        C) and depth logits (..., N, Hf, Wf, D), None under the uniform
+        lift; ``encode`` on the flattened images."""
+        lead = image.shape[:-3]
+        feat, depth = self.encode(image.reshape(-1, *image.shape[-3:]), rng)
+        feat = feat.reshape(*lead, *feat.shape[1:])
+        if depth is not None:
+            depth = depth.reshape(*lead, *depth.shape[1:])
+        return feat, depth
+
+    def splat_frames(self, feat, depth, geometry, future_egomotion, fused: bool):
+        """feat (B, S, N, Hf, Wf, C), depth (B, S, N, Hf, Wf, D) or None,
+        geometry (B, S, N, D, Hf, Wf, 3) -> BEV (B, S, nx, ny, C), the
+        frames pre-warped and accumulated: the lift then K1, or with
+        ``fused`` K4 on depth_prob x context without the lifted tensor."""
+        c = self.cfg
+        ego = future_egomotion.float()
+        if fused:
+            return project_lift_splat_fused(feat, c.depth_channels if depth is None else depth,
+                                            geometry, ego, self.bev_resolution,
+                                            self.bev_start_position, self.bev_dimension,
+                                            c.discount)
+        lifted = (lift_uniform(feat, c.depth_channels) if depth is None
+                  else lift_depth_context(feat, depth))            # (B,S,N,D,Hf,Wf,C)
+        return project_to_birds_eye_view(lifted, geometry, ego, self.bev_resolution,
+                                         self.bev_start_position, self.bev_dimension,
+                                         c.discount)
+
     def calculate_birds_eye_view_features(self, image, intrinsics, extrinsics,
                                           future_egomotion, rng=None):
         """(B, S, N, H, W, 3) -> BEV (B, S, nx, ny, C), depth logits
@@ -358,26 +393,11 @@ class STP3(nn.Module):
         ``fused_lift_splat``: K4 splats depth_prob x context without the
         lifted tensor (the JAX package takes that branch on a single-device
         TPU only; here whenever the flag is set)."""
-        b, s, n = image.shape[:3]
-        geometry = get_geometry(self._frustum(image.device), intrinsics.float(),
-                                extrinsics.float())
         c = self.cfg
-        feat, depth = self.encode(image.reshape(b * s * n, *image.shape[3:]), rng)
-        feat = feat.reshape(b, s, n, *feat.shape[1:])
-        if depth is not None:
-            depth = depth.reshape(b, s, n, *depth.shape[1:])
+        geometry = self.camera_geometry(intrinsics, extrinsics)
+        feat, depth = self.encode_cameras(image, rng)
         cam_front = feat[:, -1, c.cam_front_index] if c.planning_enabled else None
-        if c.fused_lift_splat:
-            x = project_lift_splat_fused(feat, c.depth_channels if depth is None else depth,
-                                         geometry, future_egomotion.float(),
-                                         self.bev_resolution, self.bev_start_position,
-                                         self.bev_dimension, c.discount)
-            return x, depth, cam_front
-        lifted = (lift_uniform(feat, c.depth_channels) if depth is None
-                  else lift_depth_context(feat, depth))            # (B,S,N,D,Hf,Wf,C)
-        x = project_to_birds_eye_view(lifted, geometry, future_egomotion.float(),
-                                      self.bev_resolution, self.bev_start_position,
-                                      self.bev_dimension, self.cfg.discount)
+        x = self.splat_frames(feat, depth, geometry, future_egomotion, c.fused_lift_splat)
         return x, depth, cam_front
 
     def distribution_forward(self, present_state, noise=None):
@@ -475,20 +495,19 @@ class STP3(nn.Module):
         pre-warp, no temporal accumulate; K1 at F=B). image (B, N, H, W,
         3); intrinsics (B, N, 3, 3); extrinsics (B, N, 4, 4). Returns (bev
         (B, nx, ny, C), cam_front (B, Hf, Wf, C))."""
-        b, n = image.shape[:2]
-        geometry = get_geometry(self._frustum(image.device), intrinsics[:, None].float(),
-                                extrinsics[:, None].float())
         c = self.cfg
-        feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
-        feat = feat.reshape(b, n, *feat.shape[1:])
+        feat, depth = self.encode_cameras(image)
         cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
-        lifted = (lift_uniform(feat, c.depth_channels) if depth is None else
-                  lift_depth_context(feat, depth.reshape(b, n, *depth.shape[1:])))
-        zero_ego = torch.zeros(b, 1, 6, device=image.device)
-        bev = project_to_birds_eye_view(lifted[:, None], geometry, zero_ego,
-                                        self.bev_resolution, self.bev_start_position,
-                                        self.bev_dimension, self.cfg.discount)[:, 0]
-        return bev, cam_front
+        return self.splat_present(feat, depth, intrinsics, extrinsics), cam_front
+
+    def splat_present(self, feat, depth, intrinsics, extrinsics):
+        """The present frame's features (B, N, Hf, Wf, C) and depth logits
+        (or None) splatted in its own ego frame: (B, nx, ny, C), lift then
+        K1."""
+        geometry = self.camera_geometry(intrinsics[:, None], extrinsics[:, None])
+        zero_ego = torch.zeros(feat.shape[0], 1, 6, device=feat.device)
+        return self.splat_frames(feat[:, None], None if depth is None else depth[:, None],
+                                 geometry, zero_ego, fused=False)[:, 0]
 
     def serve_step(self, image, intrinsics, extrinsics, future_egomotion, cached_bev,
                    trajs, commands, target_points):
@@ -514,9 +533,8 @@ class STP3(nn.Module):
         ``StaticSplatPlan.device_buckets(device)`` (a list: per-cell gather
         buckets). Returns (bev, cam_front)."""
         c = self.cfg
-        b, n = image.shape[:2]
-        feat, depth = self.encode(image.reshape(b * n, *image.shape[2:]))
-        feat = feat.reshape(b, n, *feat.shape[1:])                   # (B,N,Hf,Wf,C)
+        n = image.shape[1]
+        feat, depth = self.encode_cameras(image)                     # (B,N,Hf,Wf,C)
         cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
         ctx, dp = context_depth_rays(c, feat, depth)
         if isinstance(plan, dict):

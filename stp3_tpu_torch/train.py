@@ -16,7 +16,22 @@ max_epochs; the JAX CLI runs EPOCHS more after a resume).
 ``PRETRAINED.LOAD_WEIGHTS`` with ``PRETRAINED.PATH`` warm-starts from a
 checkpoint of the previous stage without its decoder heads.
 
-``run(cfg, device)`` is the same run for a config built in code.
+Data parallel, one process per card (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node N -m stp3_tpu_torch.train --config-file ... [KEY VALUE ...]
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``:
+gloo on the CPU) with its own rows of every global batch of N x
+BATCHSIZE (``BATCHSIZE`` is per process, as in the JAX package); the
+run directory is rank 0's, broadcast; only rank 0 logs, writes the
+checkpoints and the ``best`` pointer, and every rank waits at a barrier
+after each save. A resume loads on every rank, onto its own device;
+rank 0 continues its generator's stream, the others reseed from (step,
+rank).
+The host batches reach the device through ``prefetch_to_device``.
+
+``run(cfg, device)`` is the same run for a config built in code; under
+torchrun's environment it joins the process group first.
 """
 from __future__ import annotations
 
@@ -31,8 +46,8 @@ import torch
 from stp3_tpu_torch.config import get_cfg, get_parser
 from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
 from stp3_tpu_torch.training import checkpoint as ckpt_lib
-from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
-from stp3_tpu_torch.utils.device import resolve_device
+from stp3_tpu_torch.parallel import mesh
+from stp3_tpu_torch.training.trainer import Trainer
 
 
 class StepTimer:
@@ -90,27 +105,36 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
     ``ckpt_dir``, ``last`` (the newest checkpoint), ``start_step`` and
     ``start_best_iou`` (restored on resume, else 0 and -1), ``step``,
     ``best_iou``, the last epoch's ``metrics``, the last step's ``loss``,
-    and ``train_ms`` / ``val_ms``, each train and val step's time."""
-    device = resolve_device(device)
+    and ``train_ms`` / ``val_ms``, each train and val step's time (every
+    rank returns the record; ``log`` is called on rank 0 only)."""
+    device = mesh.maybe_initialize_multihost(device)
+    group = mesh.data_group()
+    rank, world = mesh.process_index(group), mesh.process_count(group)
+    main = rank == 0
+    if not main:
+        log = _quiet
     if save_dir is None:
         save_dir = os.path.join(cfg.LOG_DIR, time.strftime('%d%B%Y_%H%M') + '_'
                                 + socket.gethostname() + '_' + cfg.TAG)
+    save_dir = mesh.broadcast_string(save_dir, group)
     ckpt_dir = os.path.join(save_dir, cfg.CHECKPOINT.DIR)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if main:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
-    trainloader, valloader = prepare_dataloaders(cfg)
+    trainloader, valloader = prepare_dataloaders(cfg, rank=rank, world=world)
     try:
-        trainer = Trainer(cfg, device=device)
+        trainer = Trainer(cfg, device=device, group=group)
         n_params = sum(p.numel() for p in trainer.model.parameters())
-        log(f'device {device}; {cfg.TAG}: {n_params / 1e6:.2f}M parameters, compute '
-            f'{trainer.compute_dtype}; {len(trainloader)} train / {len(valloader)} val batches '
-            f'an epoch')
+        log(f'device {device}; {world} rank(s) of batch {cfg.BATCHSIZE}; {cfg.TAG}: '
+            f'{n_params / 1e6:.2f}M parameters, compute {trainer.compute_dtype}; '
+            f'{len(trainloader)} train / {len(valloader)} val batches an epoch')
 
         if cfg.PRETRAINED.LOAD_WEIGHTS and cfg.PRETRAINED.PATH:
             restored = ckpt_lib.load_checkpoint(cfg.PRETRAINED.PATH, map_location=device)
             merged, n = ckpt_lib.filter_warm_start_params(restored['model'],
                                                           trainer.model.state_dict())
             trainer.model.load_state_dict(merged)
+            trainer.broadcast_state()
             log(f'warm start: loaded {n} tensors from {cfg.PRETRAINED.PATH} (decoder heads '
                 f'skipped)')
 
@@ -120,6 +144,9 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
         start_step = 0
         if cfg.CHECKPOINT.RESUME:
             start_step = ckpt_lib.restore_train_state(cfg.CHECKPOINT.RESUME, trainer)
+            trainer.broadcast_state()
+            if rank:     # the checkpoint holds rank 0's generator; the others draw anew
+                trainer.generator.manual_seed(mesh.rank_seed(start_step, rank))
             best_iou = float(ckpt_lib.load_meta(cfg.CHECKPOINT.RESUME)['metrics']
                              .get('best_iou', -1.0))
             log(f'resumed from {cfg.CHECKPOINT.RESUME} at step {trainer.step} (best val '
@@ -133,8 +160,7 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
         loss = None
         for epoch in range(trainer.step // max(len(trainloader), 1), cfg.EPOCHS):
             trainloader.epoch = epoch             # this epoch's shuffle order
-            for batch in trainloader:
-                batch = batch_to_device(batch, device)
+            for batch in mesh.prefetch_to_device(trainloader, device):
                 train_timer.start()
                 loss = trainer.train_step(batch)
                 train_timer.stop()
@@ -144,8 +170,7 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
             record['loss'] = loss
 
             trainer.reset_metrics()
-            for batch in valloader:
-                batch = batch_to_device(batch, device)
+            for batch in mesh.prefetch_to_device(valloader, device):
                 val_timer.start()
                 trainer.val_step(batch)
                 val_timer.stop()
@@ -163,16 +188,20 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
                 iou_dyn = float(iou[1]) if iou.size > 1 else float(iou[0])
                 is_new_best = iou_dyn > best_iou
                 best_iou = max(best_iou, iou_dyn)
-                path = ckpt_lib.save_checkpoint(
-                    ckpt_dir, trainer.step, trainer.model.state_dict(),
-                    trainer.optimizer.state_dict(), cfg.convert_to_dict(),
-                    trainer.generator.get_state(),
-                    metrics={'best_iou': best_iou, 'monitor': 'iou_vehicle_dynamic'})
+                path = ckpt_lib.checkpoint_path(ckpt_dir, trainer.step)
+                if main:
+                    ckpt_lib.save_checkpoint(
+                        ckpt_dir, trainer.step, trainer.model.state_dict(),
+                        trainer.optimizer.state_dict(), cfg.convert_to_dict(),
+                        trainer.generator.get_state(),
+                        metrics={'best_iou': best_iou, 'monitor': 'iou_vehicle_dynamic'})
+                    if is_new_best:
+                        with open(os.path.join(ckpt_dir, 'best'), 'w') as f:
+                            f.write(path)
+                mesh.coordination_barrier(group)
                 record['last'] = path
                 log(f'saved checkpoint {path}')
                 if is_new_best:
-                    with open(os.path.join(ckpt_dir, 'best'), 'w') as f:
-                        f.write(path)
                     log(f'new best val vehicle IoU {iou_dyn:.4f} -> {path}')
         record.update(step=trainer.step, best_iou=best_iou, train_ms=train_timer.ms(),
                       val_ms=val_timer.ms())
@@ -182,13 +211,18 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
         valloader.close()
 
 
+def _quiet(_: str) -> None:
+    """The log of a rank other than 0."""
+
+
 def main(argv=None) -> None:
     parser = get_parser()
     parser.add_argument('--device', default=None,
                         help="torch device, e.g. 'cpu' (default: the card; none raises)")
     args = parser.parse_args(argv)
     record = run(get_cfg(args), args.device)
-    print(f'done: step {record["step"]}, last checkpoint {record["last"]}')
+    if mesh.is_main_process():
+        print(f'done: step {record["step"]}, last checkpoint {record["last"]}')
 
 
 if __name__ == '__main__':

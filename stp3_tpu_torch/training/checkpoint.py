@@ -52,6 +52,11 @@ def _jsonable(obj):
     return obj
 
 
+def checkpoint_path(ckpt_dir: str, step: int) -> str:
+    """The directory ``save_checkpoint`` writes for ``step``."""
+    return os.path.abspath(os.path.join(ckpt_dir, f'step_{step}'))
+
+
 def save_checkpoint(ckpt_dir: str, step: int, model_state: Mapping[str, torch.Tensor],
                     optimizer_state: Optional[Mapping[str, Any]] = None,
                     cfg_dict: Optional[Dict[str, Any]] = None,
@@ -60,7 +65,7 @@ def save_checkpoint(ckpt_dir: str, step: int, model_state: Mapping[str, torch.Te
     """Write ``<ckpt_dir>/step_<step>/`` and point ``last`` at it; returns
     its path. ``metrics``: json-able monitor state (e.g. ``{'best_iou':
     ...}``), kept under meta.json's ``metrics`` key."""
-    path = os.path.abspath(os.path.join(ckpt_dir, f'step_{step}'))
+    path = checkpoint_path(ckpt_dir, step)
     os.makedirs(path, exist_ok=True)
     payload = {'model': dict(model_state), 'step': int(step)}
     if optimizer_state is not None:

@@ -29,6 +29,21 @@ root of the bias-corrected second moment, as the JAX package's
 ``optax.chain(clip_by_global_norm, add_decayed_weights, adam)`` does.
 (torch's clip divides by ``norm + 1e-6`` where optax divides by
 ``norm``: a relative difference of 1e-6 / norm.)
+
+Data parallel (``group``, a ``torch.distributed`` process group, one
+process per card; ``parallel/mesh.py``): each rank steps on its own rows
+of the global batch, and the step equals one step on the global batch,
+as stp3_tpu's one jitted program over a batch-sharded mesh does. Rank 0's
+parameters and buffers are broadcast at construction
+(``broadcast_state`` again after a warm start or a resume); the gradients
+are averaged over the ranks before the clip; ``spatial_regression_loss``
+divides by the global mask count and 'bn' normalises with the global
+batch's statistics; the returned loss terms are the ranks' mean, and
+``compute_metrics`` sums the metric states over the ranks. Each rank's
+generator is seeded from (seed, rank), so the dropout masks and latent
+draws of a multi-rank run cannot equal stp3_tpu's, which draws one
+global-shaped sample: a comparison passes ``noise=`` and
+``dropout=False``.
 """
 from __future__ import annotations
 
@@ -38,12 +53,13 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from stp3_tpu_torch.layers.base import init_parameters
+from stp3_tpu_torch.layers.base import batch_norms, init_parameters
 from stp3_tpu_torch.losses import (depth_loss, hdmap_loss, segmentation_loss,
                                    spatial_regression_loss)
 from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
+from stp3_tpu_torch.parallel import mesh
 from stp3_tpu_torch.utils.device import resolve_device
 from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
 from stp3_tpu_torch.utils.network import prepare_image
@@ -57,19 +73,17 @@ def make_optimizer(cfg, params) -> torch.optim.Adam:
                             weight_decay=float(cfg.OPTIMIZER.WEIGHT_DECAY))
 
 
-def batch_to_device(batch: Mapping[str, np.ndarray], device) -> Dict[str, Any]:
-    """The batch's arrays as tensors on ``device``; the loader's per-row
-    ``valid`` mask stays a host numpy array (``Trainer.val_step`` reads it
-    on the host)."""
-    return {k: np.asarray(v) if k == 'valid' else torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+batch_to_device = mesh.batch_to_device
 
 
 class Trainer:
-    def __init__(self, cfg, device=None, seed: int = 0, model: Optional[STP3] = None):
+    def __init__(self, cfg, device=None, seed: int = 0, model: Optional[STP3] = None,
+                 group=None):
         """``model``: an STP3 with the weights to train (fp32); by default
         one from the seeded init. ``seed`` also seeds the generator of the
-        training-time random numbers, on ``device``."""
+        training-time random numbers, on ``device`` (with ``group``: from
+        (seed, rank)). ``group``: the process group to train over (see the
+        module docstring); None trains alone."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.rf = cfg.TIME_RECEPTIVE_FIELD
@@ -82,8 +96,14 @@ class Trainer:
             model = init_parameters(STP3(STP3Config.from_cfg(cfg)),
                                     torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).train()
+        self.group = group
+        if group is not None:
+            for m in batch_norms(self.model):
+                m.group = group
+            self.broadcast_state()
         self.optimizer = make_optimizer(cfg, self.model.parameters())
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator(self.device).manual_seed(
+            mesh.rank_seed(seed, mesh.process_index(group)))
         self.step = 0                 # optimizer steps taken (restored on resume)
 
         n_classes = len(cfg.SEMANTIC_SEG.VEHICLE.WEIGHTS)
@@ -161,17 +181,18 @@ class Trainer:
                 hd.TOP_K_RATIO))
         if cfg.INSTANCE_SEG.ENABLED:
             weighted('instance_center', 'centerness', spatial_regression_loss(
-                output['instance_center'], labels['centerness'], 2, rf, cfg.FUTURE_DISCOUNT))
+                output['instance_center'], labels['centerness'], 2, rf, cfg.FUTURE_DISCOUNT,
+                group=self.group))
             weighted('instance_offset', 'offset', spatial_regression_loss(
                 output['instance_offset'], labels['offset'], 1, rf, cfg.FUTURE_DISCOUNT,
-                cfg.DATASET.IGNORE_INDEX))
+                cfg.DATASET.IGNORE_INDEX, group=self.group))
         if cfg.LIFT.GT_DEPTH:
             weighted('depths', 'depths', depth_loss(output['depth_prediction'],
                                                     labels['depths']))
         if cfg.INSTANCE_FLOW.ENABLED:
             weighted('instance_flow', 'flow', spatial_regression_loss(
                 output['instance_flow'], labels['flow'], 1, rf, cfg.FUTURE_DISCOUNT,
-                cfg.DATASET.IGNORE_INDEX))
+                cfg.DATASET.IGNORE_INDEX, group=self.group))
         if cfg.PLANNING.ENABLED:
             occ_ped = labels.get('pedestrian', torch.zeros_like(labels['segmentation']))
             occupancy = torch.logical_or(labels['segmentation'][:, rf:],
@@ -207,16 +228,37 @@ class Trainer:
 
     def train_step(self, batch, noise=None, dropout: bool = True) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the detached loss dict with 'total'.
-        Nothing here waits for the device."""
+        Nothing here waits for the device (but a gloo collective)."""
+        out = self.compute_gradients(batch, noise, dropout)
+        self.apply_gradients()
+        return out
+
+    def compute_gradients(self, batch, noise=None,
+                          dropout: bool = True) -> Dict[str, torch.Tensor]:
+        """The gradients of the step into ``.grad``, averaged over the
+        ranks; returns the detached loss dict with 'total' (the ranks'
+        mean)."""
         self.optimizer.zero_grad(set_to_none=True)
         total, loss = self.loss_fn(batch, noise, dropout)
         total.backward()
+        out = {k: v.detach() for k, v in loss.items()}
+        out['total'] = total.detach()
+        if self.group is not None:
+            mesh.allreduce_gradients(self.model.parameters(), self.group)
+            out = mesh.allreduce_mean(out, self.group)
+        return out
+
+    def apply_gradients(self) -> None:
+        """Clip the (global) gradient norm, then Adam."""
         torch.nn.utils.clip_grad_norm_(self.model.parameters(), float(self.cfg.GRAD_NORM_CLIP))
         self.optimizer.step()
         self.step += 1
-        out = {k: v.detach() for k, v in loss.items()}
-        out['total'] = total.detach()
-        return out
+
+    def broadcast_state(self) -> None:
+        """Rank 0's parameters and buffers on every rank (at start, after
+        a warm start or a resume); nothing without a group."""
+        if self.group is not None:
+            mesh.broadcast_module(self.model, self.group)
 
     @torch.no_grad()
     def val_forward(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
@@ -252,13 +294,16 @@ class Trainer:
         """``val_forward`` and the metric updates (reference
         trainer.py:199-250). A ``valid`` key (a per-row bool, the loader's
         ``with_valid_mask``) marks the wrap-around padding rows of a ragged
-        multi-process validation tail: those rows enter no metric, so the
-        summed metrics equal a one-process run's."""
+        multi-process validation tail: those rows enter no metric (a batch
+        of padding only updates none), so the summed metrics equal a
+        one-process run's."""
         rf = self.rf
         batch = dict(batch)
         valid = batch.pop('valid', None)
         output, labels = self.val_forward(batch)
         vmask = None if valid is None else np.asarray(valid, bool)
+        if vmask is not None and not vmask.any():
+            return output, labels            # all padding: a rank's share of a ragged tail
         rows = None
         if vmask is not None and not vmask.all():
             rows = torch.as_tensor(np.flatnonzero(vmask), device=self.device)
@@ -299,6 +344,21 @@ class Trainer:
         return [m for m in ms if m is not None]
 
     def compute_metrics(self) -> Dict[str, Any]:
+        """The validation metrics; with a group, of the states summed over
+        the ranks (each rank's own states are left as they were)."""
+        if self.group is None:
+            return self._compute_metrics()
+        metrics = self._all_metrics()
+        local = [m.state for m in metrics]
+        try:
+            for m in metrics:
+                m.state = mesh.allreduce_host_tree(m.state, self.group)
+            return self._compute_metrics()
+        finally:
+            for m, state in zip(metrics, local):
+                m.state = state
+
+    def _compute_metrics(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {'iou_vehicle': self.metric_vehicle_val.compute()}
         if self.metric_pedestrian_val is not None:
             out['iou_pedestrian'] = self.metric_pedestrian_val.compute()

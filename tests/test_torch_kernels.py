@@ -432,7 +432,9 @@ def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one imported jax in conftest.py): the
     port's modules, the weight-interchange CLIs and the CARLA agent among
     them, and the datasets with their image I/O and the PIL-free stand-in
-    data of tests/torch_fake_datasets.py, pull in nothing of jax, flax,
+    data of tests/torch_fake_datasets.py, the data-parallel and
+    camera-parallel modules and their test ranks
+    (tests/torch_dist_worker.py), pull in nothing of jax, flax,
     optax, orbax, stp3_tpu, PIL or cv2 (the card's machine has neither PIL
     nor cv2), nor PyYAML at import time (nor has it PyYAML: only
     ``CfgNode.merge_from_file`` imports it)."""
@@ -456,6 +458,8 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch.scripts.import_torch_checkpoint\n'
         'import stp3_tpu_torch.scripts.export_torch_checkpoint\n'
         'import stp3_tpu_torch.scripts.import_backbone\n'
+        'import stp3_tpu_torch.parallel.mesh, stp3_tpu_torch.parallel.serving\n'
+        'import stp3_tpu_torch.parallel.launch, torch_dist_worker\n'
         'new = set(sys.modules) - before\n'
         f'print(json.dumps(sorted(m for m in new if m.split(".")[0] in {_FOREIGN + ("yaml",)!r})))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
@@ -478,9 +482,11 @@ def _imports(path):
 def test_no_module_of_the_port_nor_chip_smoke_imports_the_jax_side():
     """Read with ast, so a lazy import inside a function counts too; the
     stand-in data that chip_smoke.py imports (tests/torch_fake_datasets.py)
-    is held to the same ban."""
+    and the test ranks of the multi-process tests
+    (tests/torch_dist_worker.py) are held to the same ban."""
     paths = [os.path.join(REPO, 'chip_smoke.py'),
-             os.path.join(REPO, 'tests', 'torch_fake_datasets.py')]
+             os.path.join(REPO, 'tests', 'torch_fake_datasets.py'),
+             os.path.join(REPO, 'tests', 'torch_dist_worker.py')]
     for root, _, files in os.walk(os.path.join(REPO, 'stp3_tpu_torch')):
         paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
     assert len(paths) > 30
