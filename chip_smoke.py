@@ -52,6 +52,14 @@ Phases, each printing one line (or a few) before the last:
      fp32 masters, REMAT 'encoder', seeded init, synthetic batches): one
      counted step, then 2 warm-up and 10 timed steps; loss terms finite,
      parameters changed, step p50, samples/s and peak memory;
+     [remat]: the same stage under each MODEL.REMAT tag of REMAT_TAGS
+     ('encoder', each other stage with it, and encoder+temporal+decoder+
+     cells), from one seeded init and batch: each step's loss terms and
+     gradients against the 'encoder' step's, within REMAT_MULTIPLE of the
+     distance between two 'encoder' reruns (the bf16 backward's order);
+     launches (K1 and K3 once, K2 twice, 4 times under 'future' and
+     'gates', whose recomputation runs the future stage's K2 again); peak
+     memory, and step p50 in 4 turns with a resident 'encoder' trainer;
  11. [fused]: the flagship with fused_lift_splat: fp32 BEV features of the
      fused and materialised paths of the same weights, then forward + plan
      under the bf16 policy (K4 once, K2 twice, K1 never) and its p50; then
@@ -83,12 +91,19 @@ Phases, each printing one line (or a few) before the last:
  15. [bn_frozen]: the flagship forward + plan under MODEL.NORM
      'bn_frozen', bf16: launches and p50 of 20 steps;
  16. [train_cli]: stp3_tpu_torch.train.run on the full-width Planning
-     stage (batch 2, bf16, REMAT 'encoder') over synthetic 'mini' data:
-     one epoch (5 train steps, validation on 4 samples, a checkpoint),
-     then a resume for a second epoch whose step, Adam step and best IoU
-     continue from the saved ones; launches per epoch (K1 and K3 once a
-     train step, K1 once a val forward, K2 twice each), train and val
-     step p50, checkpoint bytes, save and load ms;
+     stage (batch 2, bf16, REMAT 'encoder') over synthetic 'mini' data,
+     with PROFILE.ENABLED (2 steps) and VIS_INTERVAL 2: one epoch (5 train
+     steps, validation on 4 samples, a checkpoint), then a resume for a
+     second epoch whose step, Adam step and best IoU continue from the
+     saved ones; which of tensorboard, moviepy and matplotlib the machine
+     has; launches per epoch (K1 and K3 once a train step, K1 once a val
+     forward, K2 twice each, and a panel forward every 2 steps where
+     tensorboard is present), train and val step p50, checkpoint bytes,
+     save and load ms; the profiler trace holds exactly steps 2 and 3 and
+     K1's, K3's and K2's kernels; visualise_output of a full-width val
+     forward is (T, 1400, 400, 3) uint8; DEBUG.NAN_CHECK on a NaN camera
+     image raises FloatingPointError with the parameters, Adam and the
+     step unchanged bit for bit;
  17. [evaluate_planning]: stp3_tpu_torch.evaluate.evaluate on that
      checkpoint at batch 1 (4 samples: K1 once, K2 twice a sample): every
      result key finite and in its range, samples/s;
@@ -151,6 +166,10 @@ Phases, each printing one line (or a few) before the last:
      after the all-reduce, the parameters' updates; under MODEL.NORM 'bn'
      the running statistics), both ranks bit for bit equal; then 3 bf16
      steps a rank, each launching K1, K3 and K2 twice;
+     [dp batch split]: in one process (fp32, TF32 off, deterministic
+     algorithms where torch has them), the mean of two batch-1 steps of the
+     Planning stage against the batch-2 step, beside the batch-2 step with
+     its samples swapped, held to DP_LIMITS as [dp 2 ranks] is;
  27. [cam parallel]: three ranks (``--rank cam``) on the card over gloo
      split the flagship's 6 cameras over groups of 2 and 3, in bf16 and
      in fp32: forward + plan, serve_step and serve_step_static against the
@@ -352,7 +371,7 @@ KERNELS = (
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
          'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data',
-         'dp_nccl', 'dp_ranks', 'cam_parallel')
+         'dp_nccl', 'dp_ranks', 'cam_parallel', 'remat')
 
 
 def counters():
@@ -1645,6 +1664,144 @@ def phase_perception_bn(cfg, device, card):
     return launches
 
 
+# the MODEL.REMAT tags of [remat]: 'encoder' (every shipped YAML's) first,
+# then each other stage with it, and one composition
+REMAT_TAGS = ('encoder', 'encoder+temporal', 'encoder+future', 'encoder+decoder',
+              'encoder+cells', 'encoder+gates', 'encoder+temporal+decoder+cells')
+# a tag's distance from the 'encoder' step may reach this multiple of the
+# distance between 'encoder' steps themselves, or 1e-6, the larger: two runs
+# of one bf16 step give bit-equal loss terms but gradients ~2% apart in the
+# median on the card (the backward's atomic adds land in another order)
+REMAT_MULTIPLE = 4.0
+REMAT_FLOOR = 1e-6
+
+
+def remat_trainer(cfg, remat: str, weights: dict, device):
+    """A Trainer of ``cfg`` under MODEL.REMAT ``remat`` with ``weights``
+    and the seeded generator."""
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.training.trainer import Trainer
+    run_cfg = cfg.clone()
+    run_cfg.MODEL.REMAT = remat
+    model = STP3(STP3Config.from_cfg(run_cfg))
+    model.load_state_dict(weights)
+    return Trainer(run_cfg, device=device, seed=SEED, model=model)
+
+
+def remat_numbers(trainer, batch):
+    """(loss terms, gradients) of one step without the update: dropout on,
+    the latent drawn from the trainer's generator."""
+    loss = trainer.compute_gradients(batch)
+    return ({k: v.item() for k, v in loss.items()},
+            {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()})
+
+
+def remat_distance(got, want) -> dict:
+    """The loss terms' largest relative difference; the gradients' median
+    and worst relative L2 error (``grad_errors``)."""
+    errs = grad_errors(got[1], want[1])
+    return {'loss': max(abs(got[0][k] - v) / max(abs(v), 1e-12) for k, v in want[0].items()),
+            'median': float(np.median(list(errs.values()))), 'worst': max(errs.values())}
+
+
+def step_ms(trainer, batch):
+    """(ms of one train step by CUDA events, its loss terms)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loss = trainer.train_step(batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), loss
+
+
+def phase_remat(cfg, device, card, turns: int = 4) -> dict:
+    """[remat]: the full-width Planning stage (batch 2, bf16 policy over fp32
+    masters, seeded init, a synthetic batch) under each of ``REMAT_TAGS``.
+    Each tag's step (dropout on, the latent from the seeded generator) from
+    the same weights and batch: its loss terms and gradients against the
+    'encoder' step's, within ``REMAT_MULTIPLE`` of the distance between
+    'encoder' steps (the larger of two reruns); its launches (K1 and K3
+    once, K2 twice, and twice more where 'future' or 'gates' recomputes
+    the future stage: K2 is a ctypes launch, which no checkpoint policy
+    sees, so it runs again in the recomputation). Then, after a warm-up,
+    one train step's peak ``max_memory_allocated`` and ``turns`` pairs of
+    train steps in turns with a resident 'encoder' trainer (CUDA events;
+    the tag first in every other pair): each tag's p50 beside 'encoder''s
+    of the same turns. Returns the launches of the counted steps, summed
+    over the tags."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer
+    weights = {k: v.detach().clone()
+               for k, v in Trainer(cfg, device=device, seed=SEED).model.state_dict().items()}
+    torch.cuda.empty_cache()
+    batch, = synthetic_batches(cfg, 1, device)
+    ref = remat_numbers(remat_trainer(cfg, 'encoder', weights, device), batch)
+    reruns = []
+    for _ in range(2):
+        base = remat_trainer(cfg, 'encoder', weights, device)
+        reruns.append(remat_distance(remat_numbers(base, batch), ref))
+    yard = {m: max(r[m] for r in reruns) for m in reruns[0]}
+    limit = {m: max(REMAT_MULTIPLE * v, REMAT_FLOOR) for m, v in yard.items()}
+    base.train_step(batch)                            # the resident 'encoder' trainer
+    say(f'[remat] {cfg.TAG}, batch {cfg.BATCHSIZE}, PRECISION {cfg.PRECISION} over fp32 '
+        f'masters: {len(ref[1])} gradients; two \'encoder\' reruns against the first: loss '
+        f'terms rel {yard["loss"]:.2e}, gradients median {yard["median"]:.2e}, worst '
+        f'{yard["worst"]:.2e} (the yardstick); each tag may reach {REMAT_MULTIPLE:g}x it, or '
+        f'{REMAT_FLOOR:g}')
+    total = {name: 0 for name in counters()}
+    rows = []
+    for tag in REMAT_TAGS:
+        trainer = remat_trainer(cfg, tag, weights, device)
+        reset_launches()
+        numbers = remat_numbers(trainer, batch)
+        launches = read_launches()
+        k2 = 4 if {'future', 'gates'} & set(tag.split('+')) else 2
+        expect_launches(f'[remat] {tag!r} step', launches, bev_splat=1, gather_rows=1,
+                        convnext_mlp=k2)
+        for name, n in launches.items():
+            total[name] += n
+        if not all(np.isfinite(v) for v in numbers[0].values()):
+            fail(f'[remat] {tag!r}: a loss term is not finite')
+        dist = remat_distance(numbers, ref)
+        del numbers
+        over = [m for m in dist if dist[m] > limit[m]]
+        if over:
+            fail(f'[remat] {tag!r}: {over} beyond the limit: {dist} against {limit}')
+        trainer.train_step(batch)                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms(trainer, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times = {'tag': [], 'encoder': []}
+        for i in range(turns):
+            order = (('tag', trainer), ('encoder', base))
+            for name, tr in (order if i % 2 == 0 else order[::-1]):
+                ms, loss = step_ms(tr, batch)
+                times[name].append(ms)
+                if not all(torch.isfinite(v).all() for v in loss.values()):
+                    fail(f'[remat] {tag!r}: a loss term of a timed step is not finite')
+        p50 = {k: float(np.median(v)) for k, v in times.items()}
+        rows.append((tag, p50['tag'], p50['encoder'], peak))
+        say(f'[remat] {tag}: step p50 {p50["tag"]:.2f} ms against the resident \'encoder\' '
+            f'trainer\'s {p50["encoder"]:.2f} in the same {turns} turns (CUDA events; spread '
+            f'{min(times["tag"]):.2f}-{max(times["tag"]):.2f} and '
+            f'{min(times["encoder"]):.2f}-{max(times["encoder"]):.2f}), ratio '
+            f'{p50["tag"] / p50["encoder"]:.3f}; peak memory {peak:.2f} GiB; launches '
+            f'{launches}; against \'encoder\': loss rel {dist["loss"]:.2e}, gradients median '
+            f'{dist["median"]:.2e}, worst {dist["worst"]:.2e}; on {card}')
+        del trainer
+        torch.cuda.empty_cache()
+    base_peak = rows[0][3]
+    say('[remat] against \'encoder\' (p50 ratio in turns, peak GiB difference): ' + '; '.join(
+        f'{tag} {ms / enc:.3f}x, {peak - base_peak:+.2f} GiB' for tag, ms, enc, peak in rows)
+        + '; the resident \'encoder\' trainer, the weights, the batch and the reference '
+        f'gradients are in every peak; on {card}')
+    del base
+    torch.cuda.empty_cache()
+    return total
+
+
 def profile_train(trainer, batches, card, steps: int = 3, tag: str = 'train'):
     """Where a train step's time goes (--profile)."""
     import torch
@@ -1695,25 +1852,46 @@ def finite_dict(d) -> bool:
     return True
 
 
+CLI_VIS_INTERVAL = 2
+
+
 def phase_train_cli(device, card, repo: str):
     """[train_cli]: ``stp3_tpu_torch.train.run`` on the full-width Planning
     stage (batch 2, bf16 policy, REMAT 'encoder') over synthetic 'mini'
-    data: one epoch of 5 train steps, validation on 4 samples (2 val
-    forwards) and a checkpoint; then a resume from that checkpoint for a
-    second epoch, whose step, Adam step and best IoU must continue from
-    the saved ones. Launches per epoch: K1 once a train step and once a
-    val forward, K3 once a train step, K2 twice each. Returns (the last
-    checkpoint, the launches of the first epoch)."""
+    data, with PROFILE.ENABLED (PROFILE.STEPS 2) and VIS_INTERVAL 2: one
+    epoch of 5 train steps, validation on 4 samples (2 val forwards) and a
+    checkpoint; then a resume from that checkpoint for a second epoch,
+    whose step, Adam step and best IoU must continue from the saved ones.
+    Launches per epoch: K1 once a train step and once a val forward, K3
+    once a train step, K2 twice each; with the tensorboard package also a
+    panel forward every VIS_INTERVAL steps (without it the CLI writes
+    nothing and runs none). The profiler trace must hold exactly steps 2
+    and 3 and name K1's, K3's and K2's kernels. Then ``cli_panels_and_nan_check``.
+    Returns (the last checkpoint, the launches of the first epoch)."""
+    import glob
+    import importlib.util
     import shutil
     import torch
     from stp3_tpu_torch.train import run
     from stp3_tpu_torch.training import checkpoint as ckpt_lib
-    cfg = make_cfg(PLANNING_STAGE, CLI_DATA)
+    cfg = make_cfg(PLANNING_STAGE, CLI_DATA, {'PROFILE': {'ENABLED': True, 'STEPS': 2},
+                                              'VIS_INTERVAL': CLI_VIS_INTERVAL})
     save_dir = os.path.join(repo, 'build', 'chip_smoke', 'train_cli')
     shutil.rmtree(save_dir, ignore_errors=True)
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ('tensorboard', 'moviepy', 'matplotlib')}
+    say('[train_cli] on this machine: ' + ', '.join(
+        f'{m} {"present" if v else "absent"}' for m, v in have.items())
+        + ' (without tensorboard the CLI writes no scalars or panels and runs no panel '
+        'forward; add_video needs moviepy; the evaluation figures need matplotlib)')
     b = int(cfg.BATCHSIZE)
     steps, vals = 10 // b, -(-int(cfg.DATASET.VAL_SAMPLES) // b)
-    want = dict(bev_splat=steps + vals, gather_rows=steps, convnext_mlp=2 * (steps + vals))
+
+    def want(first_step):
+        vis = sum(s % CLI_VIS_INTERVAL == 0 for s in range(first_step, first_step + steps)
+                  ) if have['tensorboard'] else 0
+        return dict(bev_splat=steps + vals + vis, gather_rows=steps,
+                    convnext_mlp=2 * (steps + vals + vis))
 
     def log(msg):
         say(f'[train_cli] {msg}')
@@ -1722,14 +1900,15 @@ def phase_train_cli(device, card, repo: str):
     first = run(cfg, device, save_dir, log=log)
     launches = read_launches()
     expect_launches(f'[train_cli] epoch 1 ({steps} train steps, {vals} val forwards)',
-                    launches, **want)
+                    launches, **want(1))
     say(f'[train_cli] launches in epoch 1: {launches}')
+    check_cli_trace(glob.glob(os.path.join(save_dir, 'profile', '*.pt.trace.json')), card)
     resume = cfg.clone()
     resume.EPOCHS = 2
     resume.CHECKPOINT.RESUME = first['last']
     reset_launches()
     second = run(resume, device, save_dir, log=log)
-    expect_launches('[train_cli] the resumed epoch 2', read_launches(), **want)
+    expect_launches('[train_cli] the resumed epoch 2', read_launches(), **want(steps + 1))
     state = ckpt_lib.load_checkpoint(second['last'])
     adam = {int(s['step']) for s in state['optimizer']['state'].values()}
     meta = ckpt_lib.load_meta(second['last'])
@@ -1768,8 +1947,87 @@ def phase_train_cli(device, card, repo: str):
         f'{b / np.median(train_ms) * 1e3:.3f} samples/s; val step (batch {b}) p50 '
         f'{np.median(val_ms):.2f} ms (median of {len(val_ms)}; spread {min(val_ms):.2f}-'
         f'{max(val_ms):.2f}); checkpoint {os.path.getsize(path)} B, load {load_ms:.1f} ms '
-        f'(to the card), save {save_ms:.1f} ms (from the card); on {card}')
+        f'(to the card), save {save_ms:.1f} ms (from the card); steps 2-3 ran under the '
+        f'profiler; on {card}')
+    cli_panels_and_nan_check(cfg, device, card)
     return second['last'], launches
+
+
+# K1's, K3's and K2's CUDA kernels, by the names the trace gives them
+TRACE_KERNELS = {'bev_splat': 'splat_tile_kernel', 'gather_rows': 'gather_rows_kernel',
+                 'convnext_mlp': 'convnext_mlp_kernel'}
+
+
+def check_cli_trace(paths: list, card: str) -> None:
+    """PROFILE.ENABLED's trace: one file, whose train_step_<n> ranges are
+    exactly steps 2 and 3 (the JAX CLI's window at PROFILE.STEPS 2), with
+    K1's, K3's and K2's kernels among its device events."""
+    import re
+    if len(paths) != 1:
+        fail(f'[train_cli] PROFILE.ENABLED: {len(paths)} trace files, expected one')
+    with open(paths[0]) as f:
+        events = json.load(f)['traceEvents']
+    steps = sorted({int(m.group(1)) for e in events
+                    for m in [re.fullmatch(r'train_step_(\d+)', str(e.get('name', '')))] if m})
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    counts = {name: sum(k in n for n in kernels) for name, k in TRACE_KERNELS.items()}
+    if steps != [2, 3] or not all(counts.values()):
+        fail(f'[train_cli] the profiler trace holds steps {steps} (expected [2, 3]) and our '
+             f'kernels {counts}')
+    say(f'[train_cli] PROFILE.ENABLED: {os.path.basename(paths[0])}, '
+        f'{os.path.getsize(paths[0])} B, {len(events)} events, train steps {steps}, '
+        f'{len(kernels)} device kernels, of them {counts} ours; on {card}')
+
+
+def cli_panels_and_nan_check(cfg, device, card: str) -> None:
+    """The train panels of the card's outputs, outside the CLI's guard:
+    ``visualise_output`` of a full-width val forward is (T, 7*200, 2*200,
+    3) uint8 of more than a few colours. Then DEBUG.NAN_CHECK: after a
+    clean step, a batch with one camera image of NaNs raises
+    FloatingPointError and leaves the parameters, Adam's state and the
+    step count bit for bit as they were."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer
+    from stp3_tpu_torch.utils.network import prepare_image
+    from stp3_tpu_torch.utils.visualisation import visualise_output
+    run_cfg = cfg.clone()
+    run_cfg.DEBUG.NAN_CHECK = True
+    trainer = Trainer(run_cfg, device=device, seed=SEED)
+    batch, = synthetic_batches(run_cfg, 1, device)
+    output, labels = trainer.val_forward(batch)
+    t0 = time.perf_counter()
+    panel = visualise_output(labels, output, run_cfg)
+    vis_ms = (time.perf_counter() - t0) * 1e3
+    t, (h, w) = labels['segmentation'].shape[1], labels['segmentation'].shape[2:]
+    colours = len(np.unique(panel.reshape(-1, 3), axis=0))
+    if panel.shape != (t, 7 * h, 2 * w, 3) or panel.dtype != np.uint8 or colours < 4:
+        fail(f'[train_cli] panels {panel.shape} {panel.dtype}, {colours} colours')
+    trainer.train_step(batch)
+    params = [p.detach().clone() for p in trainer.model.parameters()]
+    adam = {i: {k: v.clone() for k, v in st.items()}
+            for i, st in trainer.optimizer.state_dict()['state'].items()}
+    step = trainer.step
+    bad = dict(batch)
+    bad['image'] = prepare_image(batch['image'], torch.float32).clone()
+    bad['image'][0, 0, 0] = float('nan')
+    try:
+        trainer.train_step(bad)
+    except FloatingPointError as exc:
+        message = str(exc)
+    else:
+        fail('[train_cli] DEBUG.NAN_CHECK: a NaN image did not raise FloatingPointError')
+    after = trainer.optimizer.state_dict()['state']
+    same = (trainer.step == step
+            and all(torch.equal(a, p) for a, p in zip(params, trainer.model.parameters()))
+            and all(torch.equal(after[i][k], v) for i, st in adam.items() for k, v in st.items()))
+    if not same:
+        fail('[train_cli] DEBUG.NAN_CHECK raised, but the parameters, Adam or the step moved')
+    say(f'[train_cli] panels of the card\'s val forward: {panel.shape} uint8, {colours} '
+        f'colours, {vis_ms:.0f} ms on the host; DEBUG.NAN_CHECK on a NaN camera image: '
+        f'FloatingPointError ({message}); parameters, Adam state and step {step} unchanged bit '
+        f'for bit; on {card}')
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def prediction_checkpoint(device, repo: str) -> str:
@@ -2677,6 +2935,50 @@ def rank_dp(out_dir: str) -> dict:
     return result
 
 
+def phase_dp_batch_split(device, card) -> None:
+    """[dp batch split]: whether the 2-rank fp32 distance of [dp 2 ranks]
+    comes from the all-reduce or from the batch size. In one process, no
+    group, fp32 with TF32 off and deterministic algorithms where torch has
+    them (K1's fp32 atomics and the bilinear upsample's backward have none:
+    warn only): the Planning stage at full width from one seeded init,
+    dropout off, a fixed draw; the mean of the two batch-1 gradients (as
+    the all-reduce averages them) against the batch-2 gradient, beside the
+    batch-2 step with its samples swapped. Held to ``DP_LIMITS`` as the
+    2-rank step is."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
+    cfg = make_cfg(PLANNING_STAGE, {'PRECISION': 32})
+    glob_np = dp_global(cfg, device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        steps = {}
+        for name, rows in (('global', [0, 1]), ('swapped', [1, 0]), ('row0', [0]),
+                           ('row1', [1])):
+            batch = batch_to_device({k: v[rows] for k, v in glob_np.items()}, device)
+            noise = batch.pop('noise')
+            steps[name] = dp_step_numbers(Trainer(cfg, device=device, seed=SEED), batch, noise)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    split = {'loss': {k: (steps['row0']['loss'][k] + steps['row1']['loss'][k]) / 2
+                      for k in steps['global']['loss']},
+             'grads': {n: (steps['row0']['grads'][n] + steps['row1']['grads'][n]) / 2
+                       for n in steps['global']['grads']},
+             'update': steps['global']['update'], 'stats': {}}
+    got, floor = dp_distance(split, steps['global']), dp_distance(steps['swapped'],
+                                                                  steps['global'])
+    limits = {m: max(lim, 10 * floor[m]) for m, lim in DP_LIMITS.items() if m != 'update'}
+    say(f'[dp batch split] one process, fp32, TF32 off, deterministic algorithms where torch '
+        f'has them: the mean of two batch-1 steps vs the batch-2 step (the batch-2 step with '
+        f'its samples swapped in brackets): loss terms rel {got["loss"]:.2e} '
+        f'[{floor["loss"]:.2e}]; {len(split["grads"])} gradients, median {got["median"]:.2e} '
+        f'[{floor["median"]:.2e}], worst {got["worst"]:.2e} ({got["worst_name"]}) '
+        f'[{floor["worst"]:.2e}]; on {card}')
+    over = [m for m in limits if got[m] > limits[m]]
+    if over:
+        fail(f'[dp batch split] the batch-1 steps do not average to the batch-2 step: {over}')
+
+
 # each measure of the 2-rank step's distance from the one-process step
 # may reach the larger of its limit and 10 times the swapped step's distance
 DP_LIMITS = {'loss': 1e-4, 'median': 1e-3, 'worst': 1e-2, 'update': 1e-2, 'stats': 1e-3}
@@ -2969,6 +3271,7 @@ def main() -> None:
     for name in ('bev_splat', 'convnext_mlp', 'gather_rows'):
         report[name]['train_cli'] = report[name]['train']
         report[name]['nuscenes_data'] = report[name]['train']
+        report[name]['remat'] = report[name]['train']
     report['bev_splat']['carla_data'] = phase_k1(carla_cfg, device, 'carla_data', b)
     report['gather_rows']['carla_data'] = phase_k3(carla_cfg, device, 'carla_data')
     report['convnext_mlp']['carla_data'] = phase_k2(carla_cfg, device, 'carla_data', b)
@@ -2990,6 +3293,8 @@ def main() -> None:
     if '--profile' in sys.argv[1:]:
         profile_train(trainer, batches, card)
     del trainer, batches
+    torch.cuda.empty_cache()
+    launches['remat'] = phase_remat(train_cfg, device, card)
     torch.cuda.empty_cache()
     launches['fused'] = phase_fused(cfg, device, card)
     report['bev_splat']['agent'], per_tick, agent_p50 = phase_agent(device, card)
@@ -3036,6 +3341,7 @@ def main() -> None:
     report['convnext_mlp']['cam_parallel'] = report['convnext_mlp']['serving']
     launches['dp_nccl'] = phase_dp_nccl(train_cfg, device, card)
     launches['dp_ranks'] = report_dp(spawn_ranks('dp', DP_WORLD, repo), card)
+    phase_dp_batch_split(device, card)
     launches['cam_parallel'] = report_cam(spawn_ranks('cam', CAM_WORLD, repo), card)
     say('[launches] ' + '; '.join(f'{path} {launches[path]}' for path in PATHS)
         + f'; agent per tick {per_tick}')

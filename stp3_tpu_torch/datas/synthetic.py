@@ -207,6 +207,12 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 # the dataset of a process-pool worker (pickled in once by the pool's initializer)
 _WORKER_DATASET = None
 
+# the longest the loader waits for one sample from its pool, the pool's start
+# included (8 spawned full-width nuScenes workers take 66-85 s to start on an
+# 8-core host): a worker that hangs raises TimeoutError here instead of
+# wedging the run; one that dies raises BrokenProcessPool at once
+SAMPLE_TIMEOUT_S = 600.0
+
 
 def _worker_init(dataset):
     global _WORKER_DATASET
@@ -235,10 +241,12 @@ class NumpyLoader:
     ``with_valid_mask`` adds a per-row bool ``valid`` key that is False
     on them, for ``Trainer.val_step`` to leave out.
 
-    Its owner calls ``close()``, which stops the pool: a process pool with
-    ``close()`` and ``join()``, letting its workers finish what was handed
-    to them (``Pool.terminate()`` is the suspect of a hang in the JAX
-    package's tests)."""
+    Its owner calls ``close()``, which stops the pool, cancelling what no
+    worker has started and letting the workers finish what they have
+    (``Pool.terminate()`` is the suspect of a hang in the JAX package's
+    tests). A worker process that dies raises
+    ``concurrent.futures.process.BrokenProcessPool``; a sample that takes
+    longer than ``SAMPLE_TIMEOUT_S`` raises ``TimeoutError``."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = True, seed: int = 0, num_workers: int = 4,
@@ -262,8 +270,10 @@ class NumpyLoader:
         if self._pool is None:
             if self.use_processes:
                 import multiprocessing as mp
-                self._pool = mp.get_context('spawn').Pool(
-                    self.num_workers, initializer=_worker_init, initargs=(self.dataset,))
+                from concurrent.futures import ProcessPoolExecutor
+                self._pool = ProcessPoolExecutor(
+                    self.num_workers, mp_context=mp.get_context('spawn'),
+                    initializer=_worker_init, initargs=(self.dataset,))
             else:
                 from concurrent.futures import ThreadPoolExecutor
                 self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
@@ -271,12 +281,7 @@ class NumpyLoader:
 
     def close(self):
         pool, self._pool = self._pool, None
-        if pool is None:
-            return
-        if self.use_processes:
-            pool.close()
-            pool.join()
-        else:
+        if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
 
     def __len__(self) -> int:
@@ -322,18 +327,17 @@ class NumpyLoader:
                 yield self._finish([self.dataset[int(j)] for j in chunk], mask)
             return
         pool = self._get_pool()
-        if self.use_processes:
-            def submit(chunk):
-                return [pool.apply_async(_load_worker_sample, (int(j),)) for j in chunk]
+        load = _load_worker_sample if self.use_processes else self.dataset.__getitem__
 
-            def result(handle):
-                return handle.get()
-        else:
-            def submit(chunk):
-                return [pool.submit(self.dataset.__getitem__, int(j)) for j in chunk]
+        def submit(chunk):
+            return [pool.submit(load, int(j)) for j in chunk]
 
-            def result(handle):
-                return handle.result()
+        def result(handle):
+            try:
+                return handle.result(timeout=SAMPLE_TIMEOUT_S)
+            except TimeoutError as exc:
+                raise TimeoutError(f'no sample from a loader worker in {SAMPLE_TIMEOUT_S:.0f} '
+                                   's') from exc
         # one handle a sample, ``prefetch`` batches in flight (at least one)
         pending, it = [], iter(zip(batches, masks))
         for chunk, mask in it:

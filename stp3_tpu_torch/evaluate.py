@@ -2,7 +2,7 @@
 evaluate.py; reference evaluate.py:28-169).
 
     python -m stp3_tpu_torch.evaluate --checkpoint <ckpt dir, step dir or pointer> \
-        [--device cpu] [KEY VALUE ...]
+        [--dataroot <path>] [--no-save] [--device cpu] [KEY VALUE ...]
 
 Loads a checkpoint of the port (training/checkpoint.py) and the config
 stored beside it, then runs the no-grad loop over the validation split
@@ -12,11 +12,16 @@ panoptic metrics through ``predict_instance_segmentation_and_trajectories``
 second of horizon (``PlanningMetric(cfg, 2 (i + 1))``, reference
 evaluate.py:70-73,135-137). Planning runs on the PREDICTED occupancy and
 HD map; the collisions are scored against the GT occupancy (reference
-:121-137).
+:121-137). ``--dataroot`` sets DATASET.DATAROOT and DATASET.MAP_FOLDER.
+Unless ``--no-save``, every 100th sample's evaluation figure
+(``utils/visualisation.save_eval_figure``, which needs matplotlib) is
+saved under ``imgs_eval/<TAG>/``; ``evaluate()`` saves them only when
+asked (``save_visualisations``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
@@ -32,10 +37,10 @@ from stp3_tpu_torch.utils.device import resolve_device
 from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
 
 
-def eval_cfg(checkpoint_path: str, extra_opts=None):
+def eval_cfg(checkpoint_path: str, extra_opts=None, dataroot: str = ''):
     """The checkpoint's config with the evaluation-time changes (reference
     evaluate.py:40-44): batch 1, no GT depth, REMAT none (a train-time
-    policy)."""
+    policy); ``dataroot``, if given, as DATASET.DATAROOT and MAP_FOLDER."""
     cfg_dict = ckpt_lib.load_config_dict(checkpoint_path)
     if cfg_dict is None:
         raise FileNotFoundError(f'no config.json beside checkpoint {checkpoint_path}')
@@ -43,6 +48,9 @@ def eval_cfg(checkpoint_path: str, extra_opts=None):
     cfg.BATCHSIZE = 1
     cfg.LIFT.GT_DEPTH = False
     cfg.MODEL.REMAT = 'none'
+    if dataroot:
+        cfg.DATASET.DATAROOT = dataroot
+        cfg.DATASET.MAP_FOLDER = dataroot
     if extra_opts:
         cfg.merge_from_list(extra_opts)
     return cfg
@@ -50,13 +58,20 @@ def eval_cfg(checkpoint_path: str, extra_opts=None):
 
 def evaluate(checkpoint_path: str, device=None, extra_opts=None,
              log: Callable[[str], None] = print,
-             stats: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+             stats: Optional[Dict[str, Any]] = None, dataroot: str = '',
+             save_visualisations: bool = False) -> Dict[str, float]:
     """The evaluation's results, {name: value}. ``stats``, if given,
     receives ``samples``, the loop's wall-clock ``seconds`` and each
     sample's ``forward_ms``: ``val_forward`` and the vehicle IoU update,
-    which reads its result back (wall clock)."""
+    which reads its result back (wall clock). ``save_visualisations``:
+    the figure of every 100th sample into ``imgs_eval/<TAG>/`` (a figure
+    that fails is reported and the evaluation goes on)."""
     device = resolve_device(device)
-    cfg = eval_cfg(checkpoint_path, extra_opts)
+    cfg = eval_cfg(checkpoint_path, extra_opts, dataroot)
+    save_path = None
+    if save_visualisations:
+        save_path = os.path.join('imgs_eval', cfg.TAG)
+        os.makedirs(save_path, exist_ok=True)
     _, valloader = prepare_dataloaders(cfg, split='val')
     try:
         trainer = Trainer(cfg, device=device)
@@ -83,7 +98,7 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
 
         forward_ms, n_samples = [], 0
         t0 = time.perf_counter()
-        for batch in valloader:
+        for index, batch in enumerate(valloader):
             batch = batch_to_device(batch, device)
             # one process: the loader pads nothing, so every row must be valid
             valid = batch.pop('valid', None)
@@ -114,6 +129,12 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
                     metric.update(output['final_traj'][:, :t],
                                   labels['gt_trajectory'][:, 1:t + 1], occupancy[:, :t])
             n_samples += int(batch['image'].shape[0])
+            if save_path is not None and index % 100 == 0:
+                try:          # a figure must never stop the evaluation
+                    from stp3_tpu_torch.utils.visualisation import save_eval_figure
+                    save_eval_figure(output, labels, batch, rf, index, save_path, cfg)
+                except Exception as exc:
+                    log(f'visualisation failed: {exc!r}')
         seconds = time.perf_counter() - t0
     finally:
         valloader.close()
@@ -144,11 +165,14 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description='stp3_tpu_torch open-loop evaluation')
     parser.add_argument('--checkpoint', required=True,
                         help='checkpoint root, step directory or pointer file (last, best)')
+    parser.add_argument('--dataroot', default='', help='dataset root override')
+    parser.add_argument('--no-save', action='store_true', help='skip visualisations')
     parser.add_argument('--device', default=None,
                         help="torch device, e.g. 'cpu' (default: the card; none raises)")
     parser.add_argument('opts', nargs=argparse.REMAINDER, default=None)
     args = parser.parse_args(argv)
-    evaluate(args.checkpoint, args.device, args.opts or None)
+    evaluate(args.checkpoint, args.device, args.opts or None, dataroot=args.dataroot,
+             save_visualisations=not args.no_save)
 
 
 if __name__ == '__main__':

@@ -19,13 +19,16 @@ module boundaries copy nothing.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from stp3_tpu_torch.parallel.mesh import differentiable_all_reduce
 
@@ -439,6 +442,65 @@ def running_stats_frozen(module: nn.Module):
     finally:
         for m, flag in zip(sites, before):
             m.update_running = flag
+
+
+class _Bound(nn.Module):
+    """``module.<method>`` as the ``forward`` of a module, for
+    ``functional_call``."""
+
+    def __init__(self, module: nn.Module, method: str):
+        super().__init__()
+        self.m, self.method = module, method
+
+    def forward(self, *args):
+        return getattr(self.m, self.method)(*args)
+
+
+def remat(module: nn.Module, method: str, *args, policy: Optional[Callable] = None):
+    """``getattr(module, method)(*args)`` with its activations recomputed in
+    the backward (``torch.utils.checkpoint``, non-reentrant); a plain call
+    when autograd is off. ``policy``: a selective checkpoint
+    (``create_selective_checkpoint_contexts``) that keeps what it marks
+    saved and recomputes the rest.
+
+    The recomputation must see what the forward saw:
+      * the module's parameters as they are at the call (under a caller's
+        ``functional_call``, its e.g. bf16 copies), passed into the
+        checkpoint, since the backward runs after that call has restored
+        the module's own;
+      * the random numbers: every ``torch.Generator`` among ``args`` is
+        set back to its state at the call for the recomputation, and
+        restored after it;
+      * its 'bn' sites normalise with the batch's statistics again (the
+        same values: the same input) without a second running update.
+
+    A kernel launched through ctypes (K2) is no aten op, so no policy
+    sees it: it runs again in the recomputation."""
+    if not torch.is_grad_enabled():
+        return getattr(module, method)(*args)
+    bound = _Bound(module, method)
+    params = {f'm.{k}': v for k, v in module.named_parameters()}
+    gens = [a for a in args if isinstance(a, torch.Generator)]
+    start = [g.get_state() for g in gens]
+    ran = []
+
+    def run(params, *xs):
+        if not ran:
+            ran.append(True)
+            return functional_call(bound, params, xs)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, start):
+            g.set_state(s)
+        try:
+            with running_stats_frozen(module):
+                return functional_call(bound, params, xs)
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    kw = {} if policy is None else {
+        'context_fn': functools.partial(create_selective_checkpoint_contexts, policy)}
+    return checkpoint(run, params, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:

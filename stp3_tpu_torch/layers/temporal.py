@@ -7,13 +7,14 @@ sequences (B, C, T, H, W), so a 3-D conv sees its native layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from stp3_tpu_torch.layers.base import (Conv2d, Dense, Norm, lecun_normal_,
+from stp3_tpu_torch.layers.base import (Conv2d, Dense, Norm, lecun_normal_, remat,
                                         same_padding)
 from stp3_tpu_torch.layers.convolutions import (Bottleblock, ChannelsLast,
                                                 resize_bilinear)
@@ -80,12 +81,24 @@ class LatentGRUCell(ChannelsLast):
         return self.step(self.x_maps(x), state)
 
 
+def _cell(module, method: str, remat_cells: bool):
+    """One GRU cell step, checkpointed under MODEL.REMAT 'cells': the
+    backward recomputes the step's gate convs from its saved (x_t,
+    h_{t-1}) instead of storing every gate tensor. The per-step states
+    stay saved, so the serial rollout is not run again (as the whole
+    future stage's recomputation under 'future' runs it)."""
+    if remat_cells:
+        return functools.partial(remat, module, method)
+    return getattr(module, method)
+
+
 class SpatialGRU(ChannelsLast):
     """ConvGRU over (B, C, T, H, W), then a per-step 1x1 conv decoder."""
 
-    def __init__(self, input_size: int, hidden: int, gru_bias_init: float = 0.0):
+    def __init__(self, input_size: int, hidden: int, gru_bias_init: float = 0.0,
+                 remat_cells: bool = False):
         super().__init__()
-        self.hidden = hidden
+        self.hidden, self.remat_cells = hidden, remat_cells
         self.cell = ConvGRUCell(input_size, hidden, gru_bias_init)
         self.decoder = Conv2d(hidden, input_size, 1, bias=False)
 
@@ -93,9 +106,10 @@ class SpatialGRU(ChannelsLast):
         b, _, t, hh, ww = x.shape
         if state is None:
             state = x.new_zeros(b, self.hidden, hh, ww)
+        cell = _cell(self.cell, 'nchw', self.remat_cells)
         states = []
         for i in range(t):
-            state = self.cell.nchw(x[:, :, i], state)
+            state = cell(x[:, :, i], state)
             states.append(state)
         s = torch.stack(states, 1).flatten(0, 1)                  # (B*T, C, H, W)
         y = self.decoder(s)
@@ -107,9 +121,10 @@ class DualGRU(ChannelsLast):
     x: latent sample (B, L, 1, H, W); state: past states (B, C, P, H, W)."""
 
     def __init__(self, input_size: int, hidden: int, n_future: int,
-                 mixture: bool = True, gru_bias_init: float = 0.0):
+                 mixture: bool = True, gru_bias_init: float = 0.0, remat_cells: bool = False):
         super().__init__()
         self.input_size, self.n_future, self.mixture = input_size, n_future, mixture
+        self.remat_cells = remat_cells
         self.cell1 = LatentGRUCell(hidden, input_size, gru_bias_init)
         self.cell2 = ConvGRUCell(hidden, hidden, gru_bias_init)
         self.decoder2 = Conv2d(hidden, hidden, 3)
@@ -121,15 +136,18 @@ class DualGRU(ChannelsLast):
     def nchw(self, x, state):
         assert x.shape[1] == self.input_size
         n_present = state.shape[2]
+        # under 'cells' cell 1's step is checkpointed, its hoisted x_maps not
+        cell1 = _cell(self.cell1, 'step', self.remat_cells)
+        cell2 = _cell(self.cell2, 'nchw', self.remat_cells)
         h = state[:, :, 0]
         for t in range(n_present - 1):
-            h = self.cell2.nchw(state[:, :, t], h)
+            h = cell2(state[:, :, t], h)
         s1 = s2 = state[:, :, -1]
         x0_maps = self.cell1.x_maps(x[:, :, 0])
         outs = []
         for _ in range(self.n_future):
-            s1 = self.cell1.step(x0_maps, s1)
-            h = self.cell2.nchw(s2, h)
+            s1 = cell1(x0_maps, s1)
+            h = cell2(s2, h)
             s2 = self.decoder2(h)
             mix = torch.cat([s1, s2], 1)
             gate = torch.softmax(self.Conv_0(self.Bottleblock_0.nchw(mix)), 1)

@@ -24,16 +24,20 @@ def _per_frame(module, x, *args):
 class FuturePrediction(nn.Module):
     def __init__(self, in_channels: int, latent_dim: int, n_future: int,
                  mixture: bool = True, n_gru_blocks: int = 2, n_res_layers: int = 1,
-                 norm: str = 'gn'):
+                 norm: str = 'gn', remat_cells: bool = False):
+        """``remat_cells``: MODEL.REMAT 'cells', one checkpoint a GRU cell
+        step (``layers/temporal.py``)."""
         super().__init__()
         self.n_gru_blocks, self.n_res_layers = n_gru_blocks, n_res_layers
-        self.DualGRU_0 = DualGRU(latent_dim, in_channels, n_future, mixture)
+        self.DualGRU_0 = DualGRU(latent_dim, in_channels, n_future, mixture,
+                                 remat_cells=remat_cells)
         n_cnx = 0
         for _ in range(n_res_layers):
             setattr(self, f'ConvNeXtBlock_{n_cnx}', ConvNeXtBlock(in_channels))
             n_cnx += 1
         for i in range(n_gru_blocks):
-            setattr(self, f'SpatialGRU_{i}', SpatialGRU(in_channels, in_channels))
+            setattr(self, f'SpatialGRU_{i}', SpatialGRU(in_channels, in_channels,
+                                                        remat_cells=remat_cells))
             if i < n_gru_blocks - 1:
                 for _ in range(n_res_layers):
                     setattr(self, f'ConvNeXtBlock_{n_cnx}', ConvNeXtBlock(in_channels))

@@ -25,9 +25,13 @@ Training (``train=True``) draws every random number from the caller's
 DeepLabHeads' dropout masks and the latent noise. 'bn' normalises with
 the batch's statistics while the module is in training mode
 (``model.train()``) and updates its running statistics once a forward.
-``MODEL.REMAT='encoder'`` recomputes the encoder's activations in the
-backward (``torch.utils.checkpoint``), replaying the same masks and
-leaving the running statistics alone.
+``MODEL.REMAT`` ('none', or '+'-joined stage tags) recomputes a stage's
+activations in the backward (``layers/base.remat``), replaying the same
+masks and leaving the running statistics alone: 'encoder', 'temporal',
+'future' and 'decoder' each checkpoint their stage, 'cells' each GRU
+cell step of future prediction, and 'gates' the future stage
+selectively: its convolution and matmul outputs are kept and the rest
+is recomputed (``_save_conv_dot``).
 """
 from __future__ import annotations
 
@@ -36,10 +40,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
-from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy
 
-from stp3_tpu_torch.layers.base import Norm, running_stats_frozen, to_first, to_last
+from stp3_tpu_torch.layers.base import Norm, remat, to_first, to_last
 from stp3_tpu_torch.models.cost import CostConfig
 from stp3_tpu_torch.models.decoder import Decoder
 from stp3_tpu_torch.models.distributions import DistributionModule
@@ -54,6 +57,24 @@ from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
 from stp3_tpu_torch.ops.static_splat import column_splat, static_splat
 from stp3_tpu_torch.ops.warp import cumulative_warp_features
 from stp3_tpu_torch.utils.precision import pin_fp32_math
+
+
+_CONV_DOT = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+             torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_conv_dot(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of MODEL.REMAT 'gates': the outputs
+    of convolutions and matmuls are saved (recomputing them would read
+    their inputs again), everything elementwise (the gate sigmoids, tanh,
+    the trust gate's softmax mixing) is recomputed from them."""
+    return (CheckpointPolicy.MUST_SAVE if op in _CONV_DOT
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_tags(remat: str) -> set:
+    """The stage tags of a MODEL.REMAT value."""
+    return set() if remat == 'none' else set(remat.split('+'))
 
 
 def _cam_front_index(names) -> int:
@@ -225,19 +246,22 @@ def context_depth_rays(cfg: STP3Config, feat: torch.Tensor, depth: torch.Tensor)
 def _check_supported(c: STP3Config) -> None:
     """Refuse what this package does not port, and what the JAX package
     refuses, with the JAX package's exception where it has one."""
-    tags = set() if c.remat == 'none' else set(c.remat.split('+'))
+    tags = remat_tags(c.remat)
     unknown = tags - {'encoder', 'temporal', 'future', 'decoder', 'cells', 'gates'}
     if unknown:
         raise NotImplementedError(f'MODEL.REMAT stages {sorted(unknown)}')
+    # a tag that would do nothing on this architecture is refused: a remat
+    # policy that quietly does nothing is a memory budget miscalculated
     if 'temporal' in tags and c.temporal_name == 'identity':
         raise ValueError("MODEL.REMAT 'temporal' has no effect with "
                          "MODEL.TEMPORAL_MODEL.NAME 'identity'")
     if tags & {'future', 'cells', 'gates'} and c.n_future == 0:
         raise ValueError(f"MODEL.REMAT {sorted(tags & {'future', 'cells', 'gates'})} has no "
                          "effect with N_FUTURE_FRAMES 0 (no future-prediction stage is built)")
-    if tags - {'encoder'}:
-        raise NotImplementedError(f"MODEL.REMAT={c.remat!r} is not ported yet (only 'none' "
-                                  "and 'encoder'; the other stages are on ROADMAP.md queue 1)")
+    if 'gates' in tags and tags & {'future', 'cells'}:
+        raise ValueError("MODEL.REMAT 'gates' (policy remat) composes with "
+                         "'encoder'/'temporal'/'decoder' but not with 'future'/'cells' (they "
+                         "wrap the same stage)")
     if c.temporal_name not in ('temporal_block', 'identity'):
         raise NotImplementedError(f'Temporal module {c.temporal_name}')
     if c.temporal_name == 'temporal_block' and c.receptive_field < 2:
@@ -259,6 +283,7 @@ class STP3(nn.Module):
         _check_supported(cfg)
         pin_fp32_math()
         c = self.cfg = cfg
+        self.remat_stages = remat_tags(c.remat)
         self.bev_resolution, self.bev_start_position, self.bev_dimension = (
             calculate_birds_eye_view_parameters(list(c.x_bound), list(c.y_bound),
                                                 list(c.z_bound)))
@@ -280,7 +305,8 @@ class STP3(nn.Module):
                                                                c.prob_method, norm)
             self.future_prediction = FuturePrediction(cf, c.latent_dim, c.n_future,
                                                       c.mixture, c.n_gru_blocks,
-                                                      c.n_res_layers, norm)
+                                                      c.n_res_layers, norm,
+                                                      remat_cells='cells' in self.remat_stages)
         self.decoder = Decoder(cf, c.n_classes, c.receptive_field, c.n_hdmap,
                                c.predict_pedestrian, c.perceive_hdmap, c.predict_instance,
                                c.predict_future_flow, c.planning_enabled, norm)
@@ -320,36 +346,11 @@ class STP3(nn.Module):
         return self._frustum_on[device]
 
     def encode(self, image: torch.Tensor, rng: Optional[torch.Generator] = None):
-        """(B*, H, W, 3) -> channels-last (features, depth logits); under
-        ``remat == 'encoder'`` (and autograd) the activations are
-        recomputed in the backward. The checkpointed call takes the
-        encoder's parameters as they are now, so a recomputation sees the
-        same (e.g. bf16) copies, and it replays the forward's masks from
-        the generator state it started with, leaving the generator where
-        it was; its 'bn' sites normalise with the batch statistics again
-        (the same values: the same input) without a second running
-        update."""
-        if self.cfg.remat != 'encoder' or not torch.is_grad_enabled():
-            return self.encoder(image, rng)
-        start = None if rng is None else rng.get_state()
-        ran = []
-
-        def run(params, x):
-            if ran:                                  # the backward's recomputation
-                with running_stats_frozen(self.encoder):
-                    if rng is None:
-                        return functional_call(self.encoder, params, (x, rng))
-                    now = rng.get_state()
-                    rng.set_state(start)
-                    try:
-                        return functional_call(self.encoder, params, (x, rng))
-                    finally:
-                        rng.set_state(now)
-            ran.append(True)
-            return functional_call(self.encoder, params, (x, rng))
-
-        return checkpoint(run, dict(self.encoder.named_parameters()), image,
-                          use_reentrant=False, preserve_rng_state=False)
+        """(B*, H, W, 3) -> channels-last (features, depth logits), under
+        REMAT 'encoder' recomputed in the backward."""
+        if 'encoder' in self.remat_stages:
+            return remat(self.encoder, 'forward', image, rng)
+        return self.encoder(image, rng)
 
     def camera_geometry(self, intrinsics, extrinsics) -> torch.Tensor:
         """intrinsics (..., N, 3, 3), extrinsics (..., N, 4, 4) -> the fp32
@@ -478,7 +479,10 @@ class STP3(nn.Module):
             ego_shift = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], 1)
             ego_spatial = ego_shift[:, :, None, None, :].expand(b, s, h, w, 6)
             x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
-        states = self.temporal_model.nchw(to_first(x), rng)         # (B, C, S, H, W)
+        if 'temporal' in self.remat_stages:
+            states = remat(self.temporal_model, 'nchw', to_first(x), rng)
+        else:
+            states = self.temporal_model.nchw(to_first(x), rng)     # (B, C, S, H, W)
         stats = {}
         if c.n_future > 0:
             if c.probabilistic:
@@ -486,7 +490,14 @@ class STP3(nn.Module):
             else:
                 b, _, _, h, w = states.shape
                 sample = states.new_zeros(b, c.latent_dim, 1, h, w)
-            states = self.future_prediction.nchw(sample, states, rng)
+            if self.remat_stages & {'future', 'gates'}:
+                policy = _save_conv_dot if 'gates' in self.remat_stages else None
+                states = remat(self.future_prediction, 'nchw', sample, states, rng,
+                               policy=policy)
+            else:
+                states = self.future_prediction.nchw(sample, states, rng)
+        if 'decoder' in self.remat_stages:
+            return remat(self.decoder, 'forward', to_last(states)), stats
         return self.decoder(to_last(states)), stats
 
     # ------------------------------------------------------------- serving

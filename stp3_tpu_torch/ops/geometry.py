@@ -25,6 +25,12 @@ def calculate_birds_eye_view_parameters(x_bounds, y_bounds, z_bounds):
     return resolution, start_position, dimension
 
 
+def gen_dx_bx(xbound, ybound, zbound):
+    """(dx, bx, nx): ``calculate_birds_eye_view_parameters`` under the
+    reference's names (tools.py:176-181)."""
+    return calculate_birds_eye_view_parameters(xbound, ybound, zbound)
+
+
 def ego_footprint_grid_pts(ego_width: float, ego_height: float, bx, dx) -> np.ndarray:
     """Ego-vehicle footprint corners in BEV grid coordinates, (4, 2)
     float64, axes swapped to (col, row) raster order: a +0.5 m

@@ -30,11 +30,29 @@ rank 0 continues its generator's stream, the others reseed from (step,
 rank).
 The host batches reach the device through ``prefetch_to_device``.
 
+Around the steps, as the JAX CLI (train.py:52-229):
+  * a TensorBoard ``SummaryWriter`` on rank 0 in the run directory
+    (without the tensorboard package: a message, and nothing written):
+    ``step_train_loss_<k>`` at each logging step, ``epoch_val_<metric>``
+    (``/<i>`` per element) and ``epoch_<name>_weight`` = 1 / (2 exp(w))
+    of each uncertainty weight every epoch, and the GT-vs-prediction
+    panel video (``utils/visualisation.visualise_output``) of the train
+    batch every VIS_INTERVAL steps (``train_outputs``) and of the first
+    val batch of each epoch (``val_outputs``; torch's ``add_video``
+    needs moviepy and writes no frames without it);
+  * ``PROFILE.ENABLED``: a ``torch.profiler`` trace on rank 0 of steps 2
+    .. 1 + PROFILE.STEPS into PROFILE.DIR or ``<run dir>/profile``; each
+    train step is a ``train_step_<n>`` range in it;
+  * ``DEBUG.NAN_CHECK``: ``Trainer.train_step`` raises
+    ``FloatingPointError`` at the first NaN loss term or gradient, before
+    the update.
+
 ``run(cfg, device)`` is the same run for a config built in code; under
 torchrun's environment it joins the process group first.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import time
@@ -48,6 +66,7 @@ from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
 from stp3_tpu_torch.training import checkpoint as ckpt_lib
 from stp3_tpu_torch.parallel import mesh
 from stp3_tpu_torch.training.trainer import Trainer
+from stp3_tpu_torch.utils import profiling
 
 
 class StepTimer:
@@ -98,6 +117,43 @@ def format_metrics(metrics: Dict[str, Any]) -> List[str]:
     return lines
 
 
+def open_writer(save_dir: str, log: Callable[[str], None]):
+    """A TensorBoard ``SummaryWriter`` into ``save_dir``, or None without
+    the tensorboard package."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as exc:
+        log(f'no TensorBoard writer ({exc}): no scalars or panels are written')
+        return None
+    return SummaryWriter(save_dir)
+
+
+def write_panels(writer, tag: str, output, labels, cfg, step: int) -> None:
+    """The GT-vs-prediction panel video of a batch's first sample."""
+    from stp3_tpu_torch.utils.visualisation import visualise_output
+    panel = visualise_output(labels, output, cfg)                 # (T, H, W, 3)
+    video = torch.from_numpy(np.ascontiguousarray(panel.transpose(0, 3, 1, 2))[None])
+    writer.add_video(tag, video, global_step=step, fps=2)
+
+
+def write_epoch_scalars(writer, metrics: Dict[str, Any], model, step: int) -> None:
+    """Every validation metric, element by element, and each uncertainty
+    weight w as 1 / (2 exp(w)) (reference trainer.py:390-448)."""
+    for k, v in metrics.items():
+        for name, value in (v.items() if isinstance(v, dict) else [(None, v)]):
+            arr = np.asarray(value)
+            prefix = f'{k}/{name}' if name else k
+            if arr.size == 1:
+                writer.add_scalar(f'epoch_val_{prefix}', float(arr.reshape(())), step)
+            else:
+                for i, x in enumerate(arr.ravel()):
+                    writer.add_scalar(f'epoch_val_{prefix}/{i}', float(x), step)
+    for name, w in model.named_parameters():
+        if name.endswith('_weight') and w.ndim == 0:
+            writer.add_scalar(f'epoch_{name.replace(".", "_")}',
+                              1.0 / (2.0 * np.exp(float(w.detach()))), step)
+
+
 def run(cfg, device=None, save_dir: Optional[str] = None,
         log: Callable[[str], None] = print) -> Dict[str, Any]:
     """Train ``cfg`` on ``device`` (the card unless named) up to
@@ -118,10 +174,20 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
                                 + socket.gethostname() + '_' + cfg.TAG)
     save_dir = mesh.broadcast_string(save_dir, group)
     ckpt_dir = os.path.join(save_dir, cfg.CHECKPOINT.DIR)
+    writer = profile_dir = None
     if main:
         os.makedirs(ckpt_dir, exist_ok=True)
+        writer = open_writer(save_dir, log)
+        if cfg.PROFILE.ENABLED:
+            profile_dir = cfg.PROFILE.DIR or os.path.join(save_dir, 'profile')
+            os.makedirs(profile_dir, exist_ok=True)
+    # only rank 0 runs the train panels' forward: val_forward runs no collective
+    # (eval mode: 'bn' on its running statistics), so the other ranks need not
+    # know of the writer (the JAX CLI broadcasts it because its forward is one
+    # program over every process)
 
     trainloader, valloader = prepare_dataloaders(cfg, rank=rank, world=world)
+    profiler = contextlib.ExitStack()
     try:
         trainer = Trainer(cfg, device=device, group=group)
         n_params = sum(p.numel() for p in trainer.model.parameters())
@@ -161,22 +227,47 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
         for epoch in range(trainer.step // max(len(trainloader), 1), cfg.EPOCHS):
             trainloader.epoch = epoch             # this epoch's shuffle order
             for batch in mesh.prefetch_to_device(trainloader, device):
+                # the JAX CLI's window: the PROFILE.STEPS steps after the first
+                if profile_dir is not None and trainer.step == 1:
+                    profiler.enter_context(profiling.trace(profile_dir))
                 train_timer.start()
-                loss = trainer.train_step(batch)
+                with torch.profiler.record_function(f'train_step_{trainer.step + 1}'):
+                    loss = trainer.train_step(batch)
                 train_timer.stop()
+                if profile_dir is not None and trainer.step == 1 + cfg.PROFILE.STEPS:
+                    profiler.close()
+                    log(f'profiler trace written to {profile_dir}')
                 if trainer.step % log_every == 0 or trainer.step <= 3:
                     log(f'epoch {epoch} step {trainer.step} loss {loss["total"].item():.4f} '
                         f'({train_timer.last_ms():.0f} ms)')
+                    if writer is not None:
+                        for k, v in loss.items():
+                            writer.add_scalar(f'step_train_loss_{k}', float(v), trainer.step)
+                if writer is not None and cfg.VIS_INTERVAL > 0 and (
+                        trainer.step % cfg.VIS_INTERVAL == 0):
+                    try:          # the panels must never stop the training
+                        output, labels = trainer.val_forward(batch)
+                        write_panels(writer, 'train_outputs', output, labels, cfg,
+                                     trainer.step)
+                    except Exception as exc:
+                        log(f'train visualisation failed: {exc!r}')
             record['loss'] = loss
 
             trainer.reset_metrics()
-            for batch in mesh.prefetch_to_device(valloader, device):
+            for val_idx, batch in enumerate(mesh.prefetch_to_device(valloader, device)):
                 val_timer.start()
-                trainer.val_step(batch)
+                output, labels = trainer.val_step(batch)
                 val_timer.stop()
+                if val_idx == 0 and writer is not None:
+                    try:
+                        write_panels(writer, 'val_outputs', output, labels, cfg, trainer.step)
+                    except Exception as exc:
+                        log(f'visualisation failed: {exc!r}')
             metrics = trainer.compute_metrics()
             for line in format_metrics(metrics):
                 log(f'epoch {epoch} val {line}')
+            if writer is not None:
+                write_epoch_scalars(writer, metrics, trainer.model, trainer.step)
             record['metrics'] = metrics
 
             if cfg.CHECKPOINT.SAVE_EVERY_EPOCH:
@@ -207,6 +298,9 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
                       val_ms=val_timer.ms())
         return record
     finally:
+        profiler.close()
+        if writer is not None:
+            writer.close()
         trainloader.close()
         valloader.close()
 

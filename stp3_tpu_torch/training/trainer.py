@@ -228,10 +228,31 @@ class Trainer:
 
     def train_step(self, batch, noise=None, dropout: bool = True) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the detached loss dict with 'total'.
-        Nothing here waits for the device (but a gloo collective)."""
+        Nothing here waits for the device (but a gloo collective), unless
+        DEBUG.NAN_CHECK: then ``check_nan`` reads the loss terms and the
+        gradients back before the clip."""
         out = self.compute_gradients(batch, noise, dropout)
+        if self.cfg.DEBUG.NAN_CHECK:
+            self.check_nan(out)
         self.apply_gradients()
         return out
+
+    def check_nan(self, loss: Mapping[str, torch.Tensor]) -> None:
+        """Raise ``FloatingPointError`` at a NaN (not an inf, as
+        ``jax_debug_nans``) in a loss term or a gradient of the step, naming
+        the first (loss terms first, then the parameters in order). It runs
+        before the clip and Adam, so the parameters, Adam's state and the
+        step count are as they were; with a group the gradients are
+        already the ranks' average, so every rank raises."""
+        named = [(f'loss term {k!r}', v) for k, v in loss.items()]
+        named += [(f'the gradient of {n}', p.grad) for n, p in self.model.named_parameters()
+                  if p.grad is not None]
+        flags = torch.stack([torch.isnan(t).any() for _, t in named]).cpu()
+        if flags.any():
+            bad = [name for (name, _), flag in zip(named, flags.tolist()) if flag]
+            raise FloatingPointError(f'DEBUG.NAN_CHECK: NaN in {bad[0]} at step '
+                                     f'{self.step + 1} ({len(bad)} NaN tensors in the step); '
+                                     'no update was applied')
 
     def compute_gradients(self, batch, noise=None,
                           dropout: bool = True) -> Dict[str, torch.Tensor]:

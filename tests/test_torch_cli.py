@@ -8,12 +8,13 @@ stp3_tpu_torch.evaluate) and its loader, on the CPU at TINY's widths
   * ``evaluate.main`` on that checkpoint: the result keys of the JAX
     package's ``evaluate()`` for this config (tests/test_torch_eval.py
     holds the port's ``evaluate`` to JAX's, key for key and value for
-    value);
+    value), and its first figure under ``imgs_eval/<TAG>/``;
   * without ``--device`` and without a card each CLI raises;
   * the warm start takes every entry but the decoder's;
   * ``NumpyLoader``: its batches and ``valid`` masks equal the JAX
     package's for a ragged rank / world split, serially and through its
-    thread and process pools;
+    thread and process pools; a process worker that dies, or a sample
+    past the deadline, raises instead of hanging;
   * ``prepare_dataloaders`` refuses a dataset it does not know
     (tests/test_torch_nuscenes_data.py and tests/test_torch_carla_data.py
     drive its 'nuscenes' and 'carla' branches).
@@ -62,7 +63,8 @@ def _last(log_dir):
     return ck.resolve_checkpoint_path(last)
 
 
-def test_train_one_epoch_resume_and_evaluate_through_the_clis(tmp_path, capsys):
+def test_train_one_epoch_resume_and_evaluate_through_the_clis(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)          # the evaluation figures go to ./imgs_eval
     cfg = tiny_cfg()
     config = _config_file(tmp_path, cfg)
     log_dir = os.path.join(str(tmp_path), 'runs')
@@ -101,6 +103,7 @@ def test_train_one_epoch_resume_and_evaluate_through_the_clis(tmp_path, capsys):
     out = capsys.readouterr().out
     printed = {line.split(' : ')[0] for line in out.splitlines() if ' : ' in line}
     assert printed == PLANNING_KEYS
+    assert os.path.isfile(os.path.join(str(tmp_path), 'imgs_eval', cfg.TAG, '0000.png'))
     results = tevaluate.evaluate(resumed, 'cpu', log=lambda msg: None)
     assert set(results) == PLANNING_KEYS
     assert all(np.isfinite(v) for v in results.values())
@@ -164,6 +167,29 @@ def test_numpy_loader_matches_jax_on_a_ragged_rank_world_split(kw):
         assert got == want
         valid += [v for _, _, v in got]
     assert sum(map(sum, valid)) == 2 * 7           # every sample once an epoch
+
+
+def test_numpy_loader_raises_when_a_worker_dies_or_hangs(monkeypatch):
+    """A process worker that dies ends the epoch with BrokenProcessPool; a
+    sample that outlives the loader's deadline raises TimeoutError; the
+    pool closes after either."""
+    from concurrent.futures.process import BrokenProcessPool
+
+    from stp3_tpu_torch.datas import synthetic
+    from torch_fake_datasets import FaultyDataset
+    loader = NumpyLoader(FaultyDataset(6, 3, 'exit'), 2, num_workers=2, use_processes=True)
+    try:
+        with pytest.raises(BrokenProcessPool):
+            list(loader)
+    finally:
+        loader.close()
+    monkeypatch.setattr(synthetic, 'SAMPLE_TIMEOUT_S', 0.5)
+    loader = NumpyLoader(FaultyDataset(6, 1, 'stall', seconds=3.0), 2, num_workers=2)
+    try:
+        with pytest.raises(TimeoutError, match='no sample from a loader worker'):
+            list(loader)
+    finally:
+        loader.close()
 
 
 def test_prepare_dataloaders_sizes_and_refusals():

@@ -220,16 +220,16 @@ def test_perception_gradients_match_jax(perception_step):
 
 
 def test_refusals_of_what_stays_unported_and_of_what_jax_refuses():
-    """REMAT tags other than 'none' / 'encoder' stay refused; a REMAT tag
-    that does nothing at N_FUTURE_FRAMES 0, or 'temporal' with the identity
-    temporal model, raises the JAX package's ValueError. GT_DEPTH, refused
-    until its port, builds with its uncertainty weight (its train step:
-    tests/test_torch_gt_depth.py)."""
+    """The REMAT stage tags build (their steps: tests/test_torch_remat.py);
+    a REMAT tag that does nothing at N_FUTURE_FRAMES 0, or 'temporal' with
+    the identity temporal model, raises the JAX package's ValueError.
+    GT_DEPTH, refused until its port, builds with its uncertainty weight
+    (its train step: tests/test_torch_gt_depth.py)."""
     def build(*overrides):
         return STP3(STP3Config.from_cfg(chip_smoke.stage_cfg('perception', True, *overrides)))
     assert float(build({'LIFT': {'GT_DEPTH': True}}).depths_weight.detach()) == 0.0
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        build({'MODEL': {'REMAT': 'encoder+decoder'}})
+    assert build({'MODEL': {'REMAT': 'encoder+temporal+decoder'}}).remat_stages == {
+        'encoder', 'temporal', 'decoder'}
     with pytest.raises(ValueError, match='no effect with N_FUTURE_FRAMES 0'):
         build({'MODEL': {'REMAT': 'encoder+gates'}})
     with pytest.raises(ValueError, match="'temporal' has no effect"):

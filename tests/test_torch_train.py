@@ -273,7 +273,9 @@ def test_float64_reference_step_runs_on_the_cpu():
 def test_trainer_refuses_what_is_not_ported_and_needs_a_device_or_a_card(monkeypatch):
     cfg = planning_cfg(tiny=True)
     cfg.MODEL.REMAT = 'encoder+gates'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    assert Trainer(cfg, device='cpu').model.remat_stages == {'encoder', 'gates'}
+    cfg.MODEL.REMAT = 'gates+future'
+    with pytest.raises(ValueError, match="'gates'"):
         Trainer(cfg, device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -315,3 +315,23 @@ def write_carla_route(root: str, n_frames: int = 8, town: str = 'Town05_short',
         with open(os.path.join(rd, 'measurements', name + '.json'), 'w') as f:
             json.dump(meas, f)
     return rd
+
+
+class FaultyDataset:
+    """``n`` tiny samples; fetching ``fault_at`` kills the process that
+    fetches it (``'exit'``) or blocks it for ``seconds`` (``'stall'``):
+    a loader worker that dies, or hangs."""
+
+    def __init__(self, n: int, fault_at: int, fault: str, seconds: float = 0.0):
+        self.n, self.fault_at, self.fault, self.seconds = n, fault_at, fault, seconds
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        if i == self.fault_at:
+            if self.fault == 'exit':
+                os._exit(3)
+            import time
+            time.sleep(self.seconds)
+        return {'x': np.full((2,), i, np.int64)}
