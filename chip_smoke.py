@@ -70,8 +70,20 @@ Phases, each printing one line (or a few) before the last:
      AgentCore in its three tick modes over recorded ticks (seeded uint8
      300x400 frames, GPS 2 m further each tick): controls in range, static
      vs dynamic single-frame splat, incremental vs full heads at zero
-     ego-motion; each mode's plan_step p50 over 20 ticks, launches per
-     tick and peak memory;
+     ego-motion; each mode's plan_step p50 over 20 ticks (replaying the
+     CUDA graphs the core captured in its warm-up: no wrapper launches in
+     the ticks), the launches in the tick's graph and peak memory;
+     [graphs]: the compiled fixed-shape serving calls (utils/graphs.py)
+     against the eager model, on the [fused] phase's model (the flagship
+     step materialised and fused, bench.py's forward + occupancy + plan,
+     and STP3.serve_step, bf16) and the [agent] cores (the three tick
+     modes, fp32): an eager step under set_sync_debug_mode('error'), the
+     launches in each graph equal to the eager step's, none on a replay,
+     the refined trajectory, segmentation logits and new BEV cache graphed
+     vs eager within GRAPH_LIMIT x eager vs eager, the wall p50 of both in
+     GRAPH_TURNS (24 calls a side), the compiled call's device time and
+     the busy share, capture seconds and the pool's memory; then a batch-2
+     frame capturing a second graph and a moved parameter raising;
  13. the stage train steps, each at full width from a seeded init on
      synthetic batches under its YAML's bf16 policy and REMAT 'encoder'
      (configured as code: PERCEPTION_STAGE, CARLA_PERCEPTION,
@@ -371,17 +383,13 @@ KERNELS = (
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
          'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data',
-         'dp_nccl', 'dp_ranks', 'cam_parallel', 'remat')
+         'dp_nccl', 'dp_ranks', 'cam_parallel', 'remat', 'graphs')
 
 
 def counters():
     """Each kernel's launch counter: the wrapper that launches it."""
-    from stp3_tpu_torch.ops.kernels import bev_splat as K1
-    from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
-    from stp3_tpu_torch.ops.kernels import lift_splat as K4
-    return {'bev_splat': K1.bev_splat_accumulate, 'bev_pool_v1': K1.bev_pool_v1,
-            'bev_pool_v2': K1.bev_pool_v2, 'convnext_mlp': K2.convnext_mlp,
-            'gather_rows': K1.gather_rows, 'lift_splat': K4.lift_splat_accumulate}
+    from stp3_tpu_torch.ops.kernels import launch_counters
+    return launch_counters()
 
 
 def reset_launches() -> None:
@@ -1049,7 +1057,8 @@ def phase_parity(tiny_cfg, device):
 def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
     """The serving forward + plan at full width under the bf16 policy;
     ``fused``: with the fused lift + splat (K4 in place of the lift and
-    K1). Returns the launches of one step."""
+    K1). Returns the launches of one step, the model and the step's
+    arguments."""
     import torch
     from stp3_tpu_torch.utils.precision import policy_dtype
     tag = f'[{tag}]' if tag else '[fused]' if fused else '[flagship]'
@@ -1095,7 +1104,7 @@ def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
             profile_window(lambda i: step(), f'{tag} forward+plan', card)
         if fused:
             fused_vs_materialised(model, step, card)
-    return launches
+    return launches, model, (image, k, e, ego, trajs, gt, commands, target)
 
 
 TURNS = (False, True, True, False, False, True, True, False)   # fused_lift_splat, in turns
@@ -1199,7 +1208,7 @@ def smi_stop(proc):
 def phase_fused(cfg, device, card):
     """[fused]: the fp32 BEV features of the fused (K4) and materialised
     (lift, then K1) paths of one seeded full-width model, then the fused
-    forward + plan under the bf16 policy. Returns the launches of one step."""
+    forward + plan under the bf16 policy. Returns ``phase_flagship``'s."""
     import torch
     model = build_model(cfg).to(device)
     (image, k, e, ego), _ = example_inputs(cfg)
@@ -1256,8 +1265,9 @@ def serve_plan_args(model, out, trajs, commands, target):
 def phase_agent(device, card):
     """[agent]: the CARLA Planning stage at full width, seeded fp32 weights:
     the serving methods against the full forward, then AgentCore's three
-    tick modes. Returns (K1's numbers at the agent's splat, the launches of
-    one steady tick of each mode, each mode's plan_step p50 in ms)."""
+    tick modes. Returns (K1's numbers at the agent's splat, the launches in
+    each mode's tick graph, each mode's plan_step p50 in ms, the model, the
+    three cores by mode)."""
     import torch
     from stp3_tpu_torch.datas.carla_data import carla_cam_rig, scale_and_crop_image
     from stp3_tpu_torch.deploy.agent_core import AgentCore
@@ -1358,13 +1368,14 @@ def phase_agent(device, card):
             f'(CUDA events, median of 20)')
     del out_f, served, cache
 
-    # the three tick modes through AgentCore: 2 checked ticks, then 20 timed
-    per_tick, plan_p50, n_timed = {}, {}, 20
+    # the three tick modes through AgentCore: 2 checked ticks, then 20 timed;
+    # each tick replays the compiled calls captured in the core's warm-up
+    per_tick, plan_p50, n_timed, cores = {}, {}, 20, {}
     for mode, kw in AGENT_MODES:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        core = AgentCore(cfg, model, device=device, **kw)
+        core = cores[mode] = AgentCore(cfg, model, device=device, **kw)
         setup_s = time.perf_counter() - t0
         controls, push_ms, plan_ms, sample_ms = [], [], [], []
         for t, (frame, gps, theta) in enumerate(recorded_ticks(rf + 3 + n_timed)):
@@ -1391,9 +1402,12 @@ def phase_agent(device, card):
             if not (np.isfinite([steer, throttle]).all() and -1.0 <= steer <= 1.0
                     and 0.0 <= throttle <= 0.75 and isinstance(brake, bool)):
                 fail(f'agent {mode}: control out of range: {(steer, throttle, brake)}')
-        per = {name: n / n_timed for name, n in launches.items()}
-        expect_launches(f'agent {mode} tick', per, **({} if mode == 'static' else {'bev_splat': 1}))
-        per_tick[mode] = {name: int(n) for name, n in per.items()}
+        # no wrapper ran in the timed ticks: they replayed the graphs, whose
+        # kernels the capture counted
+        expect_launches(f'agent {mode} ticks (replays)', launches)
+        per_tick[mode] = tick_graph(core).launches_per_call
+        expect_launches(f'agent {mode} tick graph', per_tick[mode],
+                        **({} if mode == 'static' else {'bev_splat': 1}))
         plan_p50[mode] = float(np.median(plan_ms[2:]))
         first = [tuple(round(float(v), 4) for v in c[:3]) for c in controls[:2]]
         say(f'[agent] {mode}: set-up (incl. warm-up{", column plan" if mode == "static" else ""}) '
@@ -1402,11 +1416,223 @@ def phase_agent(device, card):
             f'wall clock, host included; spread {min(plan_ms[2:]):.2f}-{max(plan_ms[2:]):.2f}), '
             f'push_frame (crop) p50 {float(np.median(push_ms)):.3f} ms, of which host work: '
             f'trajectory sampling p50 {float(np.median(sample_ms)):.2f} ms; launches per tick '
-            f'{ {n: v for n, v in per_tick[mode].items() if v} }; peak memory {peak:.2f} GiB; '
-            f'on {card}')
+            f'(in its graph) { {n: v for n, v in per_tick[mode].items() if v}}; peak memory '
+            f'{peak:.2f} GiB; on {card}')
         if '--profile' in sys.argv[1:]:
             profile_ticks(core, mode, card)
-    return k1, per_tick, plan_p50
+    return k1, per_tick, plan_p50, model, cores
+
+
+def tick_graph(core):
+    """The compiled call an AgentCore replays each tick."""
+    return core._serve if core.incremental else core._infer
+
+
+# [graphs]: each compiled call against the eager one, in turns
+GRAPH_TURNS = (False, True, True, False, False, True, True, False)   # compiled, in turns
+GRAPH_CALLS = 6                          # calls a turn: 24 a side
+GRAPH_LIMIT = 2.0                        # graphed-vs-eager within this x eager-vs-eager
+
+
+def max_dist(got: dict, want: dict) -> dict:
+    return {key: (got[key].float() - want[key].float()).abs().max().item() for key in want}
+
+
+def compare_compiled(name: str, eager, call, args, pick, card, **want) -> dict:
+    """[graphs] for one path: ``call`` (a ``utils.graphs`` compiled call)
+    against ``eager`` (the model's own methods) on ``args``: a step under
+    ``torch.cuda.set_sync_debug_mode('error')`` (after one that makes the
+    per-device constants), the launches of an eager step and in the graph
+    (``want``), none on a replay, the outputs ``pick`` selects graphed vs
+    eager within GRAPH_LIMIT x eager vs eager, then both wall p50s in
+    GRAPH_TURNS and the compiled call's device time."""
+    import torch
+    eager(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        eager(*args)
+    except RuntimeError as err:
+        fail(f'[graphs] {name}: the eager step synchronises with the host: {err}')
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    reset_launches()
+    first = pick(eager(*args))
+    expect_launches(f'[graphs] {name} eager step', read_launches(), **want)
+    second = pick(eager(*args))
+    graphed = pick(call(*args))               # captures here unless captured before
+    expect_launches(f'[graphs] {name} graph', call.launches_per_call, **want)
+    reset_launches()
+    graphed = pick(call(*args))
+    expect_launches(f'[graphs] {name} replay', read_launches())
+    d_eager, d_graph = max_dist(second, first), max_dist(graphed, first)
+    if any(d_graph[key] > GRAPH_LIMIT * d_eager[key] for key in first):
+        fail(f'[graphs] {name}: graphed vs eager {d_graph} exceeds {GRAPH_LIMIT} x eager vs '
+             f'eager {d_eager}')
+    samples = {False: [], True: []}
+    for compiled in GRAPH_TURNS:
+        fn = call if compiled else eager
+        samples[compiled] += wall_samples(lambda: fn(*args), GRAPH_CALLS)
+    device = time_ms(lambda: call(*args), warmup=1, iters=10)
+    p50 = {k: float(np.median(v)) for k, v in samples.items()}
+    numbers = dict(eager_ms=p50[False], graphed_ms=p50[True], device_ms=device,
+                   busy_eager=device / p50[False], busy_graphed=device / p50[True],
+                   capture_s=call.capture_seconds, pool_mib=call.pool_bytes / 2 ** 20,
+                   launches={k: v for k, v in call.launches_per_call.items() if v},
+                   graphed_vs_eager=d_graph, eager_vs_eager=d_eager)
+    say(f'[graphs] {name}: p50 eager {p50[False]:.2f} ms, graphed {p50[True]:.2f} ms (wall, '
+        f'{len(samples[True])} calls a side in {len(GRAPH_TURNS)} alternating turns; spread '
+        f'{min(samples[False]):.2f}-{max(samples[False]):.2f} / '
+        f'{min(samples[True]):.2f}-{max(samples[True]):.2f}); the compiled call\'s device time '
+        f'{device:.2f} ms (CUDA events), busy {numbers["busy_eager"]:.3f} eager / '
+        f'{numbers["busy_graphed"]:.3f} graphed; capture {call.capture_seconds:.2f} s (with '
+        f'{call.captures} graph(s)), pool +{numbers["pool_mib"]:.1f} MiB; launches in the graph '
+        f'{numbers["launches"]} = eager; graphed vs eager '
+        f'{ {k: float(f"{v:.3e}") for k, v in d_graph.items()}} within {GRAPH_LIMIT} x eager vs '
+        f'eager { {k: float(f"{v:.3e}") for k, v in d_eager.items()}}; on {card}')
+    return numbers
+
+
+def recompiles_and_refuses(call, eager, img, model, card) -> None:
+    """[graphs]: an input of another shape captures a second graph (equal
+    to eager), the first shape replays its own; a parameter whose storage
+    moved makes the call raise, and it runs again once the storage is back."""
+    import torch
+    captures = call.captures
+    img2 = torch.cat([img, img.flip(1)])
+    got, want = call(img2), eager(img2)
+    err = (got - want).abs().max().item()
+    if call.captures != captures + 1 or not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f'[graphs] a batch-2 frame: {call.captures - captures} new graphs, max_abs_err '
+             f'{err:.3e} against eager')
+    call(img)
+    if call.captures != captures + 1:
+        fail('[graphs] the batch-1 frame captured again')
+    param = next(model.parameters())
+    held = param.data
+    param.data = held.clone()
+    try:
+        call(img)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = None
+    finally:
+        param.data = held
+    if refused is None or 'moved' not in refused:
+        fail(f'[graphs] a parameter with new storage was not refused: {refused}')
+    call(img)
+    say(f'[graphs] static splat: a batch-2 frame captured graph {call.captures} (max_abs_err '
+        f'{err:.3e} against eager, rtol 1e-4, atol 1e-3), the batch-1 frame replays its own; a '
+        f'parameter with new storage raises "{refused[:90]}..."; on {card}')
+
+
+def phase_graphs(flagship, agent_model, cores, card) -> dict:
+    """[graphs]: the compiled fixed-shape serving calls against the eager
+    model: the flagship step (bench.py's forward + occupancy + plan, bf16)
+    materialised and fused and STP3.serve_step, on the [fused] phase's
+    model; AgentCore's tick in its three modes (CARLA Planning, fp32) on
+    the [agent] phase's cores. Returns each path's numbers."""
+    import torch
+    from stp3_tpu_torch.datas.carla_data import scale_and_crop_image
+    from stp3_tpu_torch.utils import graphs, sampler
+    from stp3_tpu_torch.utils.network import prepare_image
+    t_phase = time.perf_counter()
+    model, (image, k, e, ego, trajs, gt, commands, target) = flagship
+    cfgs = {fused: dataclasses.replace(model.cfg, fused_lift_splat=fused)
+            for fused in (False, True)}
+
+    def flagship_step(fused):
+        def step(*args):
+            model.cfg = cfgs[fused]
+            return plan_step(model, *args)
+        return step
+
+    def compared(traj, out, cache=None):
+        """The outputs held graphed vs eager: (traj, out[, new cache])."""
+        return {'traj': traj, 'segmentation': out['segmentation'],
+                **({} if cache is None else {'cache': cache})}
+
+    def step_outputs(result):                 # plan_step returns (out, traj)
+        return compared(result[1], result[0])
+
+    rf = model.cfg.receptive_field
+    results, pool = {}, graphs.Pool()
+    with torch.inference_mode():
+        step_args = (image, k, e, ego, trajs, gt, commands, target)
+        for fused, name in ((False, 'flagship'), (True, 'flagship fused')):
+            eager = flagship_step(fused)
+            results[name] = compare_compiled(
+                name, eager, graphs.compiled(eager, model, pool=pool), step_args, step_outputs,
+                card, **({'lift_splat': 1} if fused else {'bev_splat': 1}), convnext_mlp=2)
+        model.cfg = cfgs[False]
+        cache = torch.stack([model.splat_single_frame(image[:, t], k[:, t], e[:, t])[0]
+                             for t in range(rf - 1)], 1)
+        serve_args = (image[:, -1], k[:, -1], e[:, -1], ego, cache, trajs, commands, target)
+        results['flagship serve_step'] = compare_compiled(
+            'flagship serve_step', model.serve_step, graphs.compiled(model.serve_step, model,
+                                                                     pool=pool),
+            serve_args, lambda r: compared(*r), card, bev_splat=1, convnext_mlp=2)
+
+        # the agent's ticks on the [agent] phase's cores and model, fp32
+        mc = agent_model.cfg
+        rf, crop = mc.receptive_field, mc.final_dim[0]
+        dev = image.device
+        frames = torch.as_tensor(np.stack(
+            [np.stack([scale_and_crop_image(fr[key], 1.0, crop) for key in CAMS])
+             for fr, _, _ in recorded_ticks(rf)])[None], device=dev)   # (1, rf, 4, H, W, 3)
+        # a tick's arguments in AgentCore's dtypes: 2 m forward and a slight
+        # turn a frame, sampled candidates, FORWARD, a target 5 m ahead
+        tick = (torch.as_tensor(np.tile(np.array([2.0, 0, 0, 0, 0, 0.01], np.float32),
+                                        (1, rf, 1)), device=dev),
+                torch.as_tensor(sampler.sample_trajectories(
+                    3.0, 0.0, mc.n_future, mc.sample_num, rng=np.random.RandomState(SEED))[
+                        None, :, 1:], dtype=torch.float32, device=dev),
+                torch.tensor([1], dtype=torch.int32, device=dev),
+                torch.tensor([[0.0, 5.0]], device=dev))
+
+        def prep(img):
+            return prepare_image(img, torch.float32)
+
+        plan = cores['static']._plan
+        k_rig, e_rig = cores['incremental']._intr, cores['incremental']._extr
+
+        def splat_static(img):
+            return agent_model.splat_single_frame_static(prep(img), plan)[0]
+
+        def splat_dynamic(img):
+            return agent_model.splat_single_frame(prep(img), k_rig[:, 0], e_rig[:, 0])[0]
+
+        def serve_static(img, ego_, cache_, trajs_, cmd, tp):
+            return agent_model.serve_step_static(prep(img), ego_, cache_, trajs_, cmd, tp, plan)
+
+        def serve_dynamic(img, ego_, cache_, trajs_, cmd, tp):
+            return agent_model.serve_step(prep(img), k_rig[:, 0], e_rig[:, 0], ego_, cache_,
+                                          trajs_, cmd, tp)
+
+        def infer_full(images, ego_, trajs_, cmd, tp):
+            out = agent_model(prep(images), k_rig, e_rig, ego_)
+            occ = torch.logical_or(out['segmentation'].argmax(-1),
+                                   out['pedestrian'].argmax(-1)).float()
+            gt0 = torch.zeros(1, mc.n_future, 3, device=images.device)
+            _, traj = agent_model.plan(out['cam_front'], trajs_, gt0, out['costvolume'][:, rf:],
+                                       occ[:, rf:], out['hdmap'], cmd, tp)
+            return traj, out
+
+        results['agent full'] = compare_compiled(
+            'agent full tick', infer_full, cores['full']._infer, (frames, *tick),
+            lambda r: compared(*r), card, bev_splat=1)
+        for mode, splat, serve, want in (('incremental', splat_dynamic, serve_dynamic,
+                                          {'bev_splat': 1}),
+                                         ('static', splat_static, serve_static, {})):
+            cache = torch.stack([splat(frames[:, t]) for t in range(rf - 1)], 1)
+            results[f'agent {mode}'] = compare_compiled(
+                f'agent {mode} tick', serve, cores[mode]._serve,
+                (frames[:, -1], tick[0], cache, *tick[1:]), lambda r: compared(*r), card, **want)
+        recompiles_and_refuses(cores['static']._splat, splat_static, frames[:, -1], agent_model,
+                               card)
+    say(f'[graphs] phase done in {time.perf_counter() - t_phase:.1f} s; on {card}')
+    return results
 
 
 def profile_steps(run, n: int = 3, n_gaps: int = 3) -> dict:
@@ -2083,7 +2309,9 @@ def planning_result_keys(cfg) -> list:
                    for s in range(cfg.N_FUTURE_FRAMES // 2)]
 
 
-def wall_ms(fn, reps: int) -> float:
+def wall_samples(fn, reps: int) -> list:
+    """Wall ms of ``reps`` calls of ``fn``, each from a drained device to a
+    drained device."""
     import torch
     times = []
     for _ in range(reps):
@@ -2092,7 +2320,11 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return times
+
+
+def wall_ms(fn, reps: int) -> float:
+    return float(np.median(wall_samples(fn, reps)))
 
 
 def eval_split(trainer, batch, tag: str, card) -> None:
@@ -2349,21 +2581,28 @@ AGENT_ROUTE = [({'lat': 0.0, 'lon': 0.0}, 4), ({'lat': 2e-4, 'lon': 0.0}, 4),
 
 
 def record_selection(model, sink: dict) -> None:
-    """Wrap ``model.planner.select`` to append the index of the candidate it
-    selects (B,) to ``sink['picks']`` (a measurement; nothing else changes)."""
+    """Wrap ``model.planner.select`` to write the index of the candidate it
+    selects (B,) into the device buffer ``sink['pick']`` (a measurement;
+    nothing else changes), which ``drive_harness`` and ``drive_core``
+    append to ``sink['picks']`` after each planned tick. A compiled call
+    captures the copy into that buffer: install this before the AgentCore
+    that compiles it."""
+    import torch
     select = model.planner.select
+    sink['pick'] = torch.zeros(1, dtype=torch.int64, device=next(model.parameters()).device)
 
     def recording(trajs, *args):
         final = select(trajs, *args)
-        sink['picks'].append((trajs == final[:, None]).flatten(2).all(-1).int().argmax(-1))
+        sink['pick'].copy_((trajs == final[:, None]).flatten(2).all(-1).int().argmax(-1))
         return final
     model.planner.select = recording
 
 
-def drive_harness(agent, n_ticks: int):
+def drive_harness(agent, n_ticks: int, sink=None):
     """``run_step`` over ``n_ticks`` recorded ticks (the sampler's module RNG
     seeded before each): the controls, each planned tick's wall ms, and
-    the launches of the planned ticks after the first two."""
+    the launches of the planned ticks after the first two; with a
+    ``record_selection`` sink, each planned tick's pick."""
     controls, tick_ms = [], []
     for t, (frame, _, theta) in enumerate(recorded_ticks(n_ticks)):
         data = bgra_tick(t, frame, theta)
@@ -2374,10 +2613,12 @@ def drive_harness(agent, n_ticks: int):
         controls.append(agent.run_step(data, t))
         if agent.core.warmed_up:
             tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if sink is not None:
+                sink['picks'].append(sink['pick'].clone())
     return controls, tick_ms, read_launches()
 
 
-def drive_core(core, n_ticks: int):
+def drive_core(core, n_ticks: int, sink=None):
     """The same ticks into an ``AgentCore`` directly: RGB frames, the
     position, command and local target computed here as the leaderboard
     glue does (reference carla_agent.py), zero control while warming up."""
@@ -2397,6 +2638,8 @@ def drive_core(core, n_ticks: int):
             controls.append((0.0, 0.0, 0.0))
             continue
         steer, throttle, brake, _ = core.plan_step(3.0, cmd, local)
+        if sink is not None:
+            sink['picks'].append(sink['pick'].clone())
         brake = float(brake)
         controls.append((steer, throttle, 0.0 if brake < 0.05 or throttle > brake else brake))
     return controls
@@ -2448,10 +2691,13 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     agent.set_global_plan(AGENT_ROUTE)
     sink = {'picks': []}
     record_selection(agent.core.model, sink)
-    controls, tick_ms, launches = drive_harness(agent, n_ticks)
+    # the harness's core again, compiled with the recording in its graphs
+    agent.core = AgentCore(agent.cfg, agent.core.model, device=device)
+    controls, tick_ms, launches = drive_harness(agent, n_ticks, sink)
     picks = {'fp32': list(sink['picks'])}
-    per = {name: n / n_timed for name, n in launches.items()}
-    expect_launches('[carla_agent] harness tick', per,
+    expect_launches('[carla_agent] harness ticks (replays)', launches)
+    per = tick_graph(agent.core).launches_per_call
+    expect_launches('[carla_agent] harness tick graph', per,
                     **{k: v for k, v in agent_per_tick['static'].items() if v})
     n_warm = len(controls) - len(tick_ms)
     zero = {'steer': 0.0, 'throttle': 0.0, 'brake': 0.0}
@@ -2459,12 +2705,15 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
         fail(f'[carla_agent] {len(controls)} ticks, {len(tick_ms)} planned, warm-up controls '
              f'{controls[:n_warm]}')
     core = AgentCore(agent.cfg, agent.core.model, device=device)
-    sink['picks'] = []                        # (after the core's warm-up plan)
-    direct = drive_core(core, n_ticks)
+    sink['picks'] = []
+    direct = drive_core(core, n_ticks, sink)
     got = np.array([[c['steer'], c['throttle'], c['brake']] for c in controls], np.float64)
     spread = float(np.abs(got - np.array(direct, np.float64)).max())
     flips_nd = sum(a != b for a, b in zip(torch.cat(picks['fp32']).tolist(),
                                           torch.cat(sink['picks']).tolist()))
+    # each core holds its graphs' pool (up to ~18 GiB in fp32: PERF.md)
+    del core, agent
+    torch.cuda.empty_cache()
     # the comparison itself with deterministic algorithms: two runs of the same
     # ticks on the card differ by the order of their fp32 atomic adds (the
     # column splat's index_add_), which the line above shows
@@ -2477,6 +2726,8 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
         direct_d = drive_core(AgentCore(agent_d.cfg, agent_d.core.model, device=device), n_ticks)
     finally:
         torch.use_deterministic_algorithms(False)
+    del agent_d
+    torch.cuda.empty_cache()
     got_d = np.array([[c['steer'], c['throttle'], c['brake']] for c in controls_d], np.float64)
     err = float(np.abs(got_d - np.array(direct_d, np.float64)).max())
     if err > 1e-5 or controls_d[:n_warm] != controls[:n_warm]:
@@ -2486,9 +2737,9 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
         f'ticks equal to a direct AgentCore on the same model within {err:.3e} (tolerance '
         f'1e-5, deterministic algorithms; without them the two runs differ by {spread:.3e}, '
         f'{flips_nd} of {len(tick_ms)} ticks selecting another candidate: the atomics\' '
-        f'order); launches per tick {({k: v for k, v in per.items() if v})} as [agent] '
-        f'static; harness tick p50 {np.median(tick_ms[2:]):.2f} ms (median of {n_timed}, wall '
-        f'clock: push_frame with the BGRA flip, the route planner and plan_step; spread '
+        f'order); launches per tick (in its graph) {({k: v for k, v in per.items() if v})} as '
+        f'[agent] static; harness tick p50 {np.median(tick_ms[2:]):.2f} ms (median of '
+        f'{n_timed}, wall clock: push_frame with the BGRA flip, the route planner and plan_step; spread '
         f'{min(tick_ms[2:]):.2f}-{max(tick_ms[2:]):.2f}) beside [agent] static plan_step p50 '
         f'{agent_p50["static"]:.2f} ms; on {card}')
 
@@ -2496,11 +2747,12 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     # its weights' dtype): a measurement, no option of the harness
     agent16 = STP3Agent()
     agent16.setup(path)
-    agent16.core = AgentCore(agent16.cfg, agent16.core.model.to(torch.bfloat16), device=device)
-    agent16.set_global_plan(AGENT_ROUTE)
+    model16 = agent16.core.model.to(torch.bfloat16)
     sink = {'picks': []}
-    record_selection(agent16.core.model, sink)
-    controls16, tick16_ms, launches16 = drive_harness(agent16, n_ticks)
+    record_selection(model16, sink)
+    agent16.core = AgentCore(agent16.cfg, model16, device=device)
+    agent16.set_global_plan(AGENT_ROUTE)
+    controls16, tick16_ms, _ = drive_harness(agent16, n_ticks, sink)
     picks['bf16'] = sink['picks']
     if len(tick16_ms) != 2 + n_timed or not all(
             np.isfinite([c['steer'], c['throttle']]).all() for c in controls16):
@@ -2513,8 +2765,9 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
         f'{n_timed}; spread {min(tick16_ms[2:]):.2f}-{max(tick16_ms[2:]):.2f}) against fp32\'s '
         f'{np.median(tick_ms[2:]):.2f} ms; {flips} of {n_timed} planned ticks select another '
         f'candidate than fp32 (indices fp32 {sel["fp32"]}, bf16 {sel["bf16"]}); steer differs '
-        f'by up to {d_steer:.3e}; launches per tick '
-        f'{ {k: v / n_timed for k, v in launches16.items() if v} }; on {card}')
+        f'by up to {d_steer:.3e}; launches per tick (in its graph) '
+        f'{ {k: v for k, v in tick_graph(agent16.core).launches_per_call.items() if v}}; '
+        f'on {card}')
     return launches
 
 
@@ -3288,7 +3541,7 @@ def main() -> None:
         report[name] = {'per_frame': numbers}
     phase_parity(flagship_cfg(tiny=True), device)
     phase_train_parity(planning_cfg(tiny=True), device)
-    launches['serving'] = phase_flagship(cfg, device, card)
+    launches['serving'], _, _ = phase_flagship(cfg, device, card)
     trainer, batches, launches['train'] = phase_train(train_cfg, device, card)
     if '--profile' in sys.argv[1:]:
         profile_train(trainer, batches, card)
@@ -3296,8 +3549,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     launches['remat'] = phase_remat(train_cfg, device, card)
     torch.cuda.empty_cache()
-    launches['fused'] = phase_fused(cfg, device, card)
-    report['bev_splat']['agent'], per_tick, agent_p50 = phase_agent(device, card)
+    launches['fused'], *flagship = phase_fused(cfg, device, card)
+    report['bev_splat']['agent'], per_tick, agent_p50, agent_model, cores = phase_agent(device,
+                                                                                        card)
+    # the compiled serving calls on those models: the kernels in their graphs
+    graph_numbers = phase_graphs(flagship, agent_model, cores, card)
+    launches['graphs'] = {name: sum(n['launches'].get(name, 0) for n in graph_numbers.values())
+                          for name in counters()}
+    del flagship, agent_model, cores
+    torch.cuda.empty_cache()
     # the agent path: one steady tick of each of its three modes
     launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
                          for name in counters()}
@@ -3314,8 +3574,8 @@ def main() -> None:
     launches['perception_bn'] = phase_perception_bn(
         stage_cfg('perception', False, {'MODEL': {'NORM': 'bn'}}), device, card)
     torch.cuda.empty_cache()
-    launches['bn_frozen'] = phase_flagship(make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}),
-                                           device, card, tag='bn_frozen')
+    launches['bn_frozen'], _, _ = phase_flagship(
+        make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}), device, card, tag='bn_frozen')
     ckpt, launches['train_cli'] = phase_train_cli(device, card, repo)
     launches['evaluate_planning'] = phase_evaluate('evaluate_planning', ckpt, device, card,
                                                    planning_result_keys(train_cfg))

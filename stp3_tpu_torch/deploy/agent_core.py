@@ -8,7 +8,11 @@ plumbing, so it runs against recorded ticks and real CARLA alike:
   * per-tick egomotion from consecutive gps / compass readings;
   * candidate trajectories sampled from (speed, last steering) with the
     module-level ``np.random``;
-  * one forward + plan per tick, eager, under ``torch.inference_mode()``;
+  * one compiled fixed-shape forward + plan per tick (``utils/graphs``):
+    on the card the tick's calls are CUDA graphs, captured once (in
+    ``_warmup``, or at the first tick with ``warmup=False``) and then
+    replayed, as the JAX ``AgentCore`` jits them; on the CPU they run
+    eagerly;
   * PID steering and speed controllers on the refined waypoints.
 """
 from __future__ import annotations
@@ -26,6 +30,7 @@ from stp3_tpu_torch.deploy.control import PIDController, control_pid
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters, create_frustum
 from stp3_tpu_torch.ops.static_splat import build_column_splat_plan
+from stp3_tpu_torch.utils import graphs
 from stp3_tpu_torch.utils import sampler as trajectory_sampler
 from stp3_tpu_torch.utils.device import resolve_device
 from stp3_tpu_torch.utils.network import prepare_image
@@ -46,7 +51,13 @@ class AgentCore:
     ``model`` is the port's ``STP3`` holding its weights; it runs in the
     dtype of those weights, with images prepared in fp32 (as the JAX
     ``AgentCore`` does) and then cast to it. It runs on the card unless
-    ``device`` names another; with no card and no device it raises."""
+    ``device`` names another; with no card and no device it raises.
+
+    The tick's device calls (``_splat``, ``_serve``, ``_infer``) are
+    ``utils.graphs`` compiled calls: on the card each is a CUDA graph that
+    reads the model's parameters in place, so the weights may be updated
+    in place (``load_state_dict``) but not moved (``.to()`` after
+    construction makes the next tick raise: build a new core)."""
 
     def __init__(self, cfg, model: STP3, device=None, warmup: bool = True,
                  incremental: bool = True, static_geometry: bool = True):
@@ -84,6 +95,12 @@ class AgentCore:
                                      tuple(cfg.LIFT.D_BOUND))
             self._plan = build_column_splat_plan(frustum, intr, extr, res, start,
                                                  dim).device_arrays(self.device)
+        # the tick's compiled calls; the rig (and the column plan) are
+        # constants of their graphs
+        pool = graphs.Pool()
+        self._splat = graphs.compiled(self._splat_frame, self.model, pool=pool)
+        self._serve = graphs.compiled(self._serve_frame, self.model, pool=pool)
+        self._infer = graphs.compiled(self._infer_frames, self.model, pool=pool)
         if warmup:
             self._warmup()
 
@@ -91,12 +108,13 @@ class AgentCore:
     def _tensor(self, a: np.ndarray, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device, dtype=dtype)
 
-    def _image(self, img: np.ndarray) -> torch.Tensor:
-        """uint8 frames (wire format) -> the model's input on the device."""
-        return prepare_image(self._tensor(img), torch.float32).to(self.dtype)
+    def _image(self, img: torch.Tensor) -> torch.Tensor:
+        """uint8 frames (wire format) on the device -> the model's input."""
+        return prepare_image(img, torch.float32).to(self.dtype)
 
-    def _splat_one(self, img: np.ndarray) -> torch.Tensor:
-        """Splat one (1, N, H, W, 3) frame, with the static plan when enabled."""
+    def _splat_frame(self, img):
+        """Splat one (1, N, H, W, 3) uint8 frame, with the static plan when
+        enabled (compiled as ``_splat``)."""
         if self.static_geometry:
             bev, _ = self.model.splat_single_frame_static(self._image(img), self._plan)
         else:
@@ -104,43 +122,49 @@ class AgentCore:
                                                    self._extr[:, 0])
         return bev
 
-    def _serve_one(self, img, ego, cache, trajs, cmd, tp):
-        args = (self._tensor(ego), cache, self._tensor(trajs, self.dtype),
-                self._tensor(cmd), self._tensor(tp, self.dtype))
+    def _serve_frame(self, img, ego, cache, trajs, cmd, tp):
+        """One incremental tick on the new uint8 frame (compiled as
+        ``_serve``): (refined trajectory, outputs, new cache)."""
         if self.static_geometry:
-            return self.model.serve_step_static(self._image(img), *args, self._plan)
+            return self.model.serve_step_static(self._image(img), ego, cache, trajs, cmd, tp,
+                                                self._plan)
         return self.model.serve_step(self._image(img), self._intr[:, 0], self._extr[:, 0],
-                                     *args)
+                                     ego, cache, trajs, cmd, tp)
 
-    def _infer(self, images, ego, trajs, cmd, tp):
-        """The full forward + occupancy + plan."""
+    def _infer_frames(self, images, ego, trajs, cmd, tp):
+        """The full forward + occupancy + plan on the rf uint8 frames
+        (compiled as ``_infer``): (refined trajectory, outputs)."""
         model, rf = self.model, self.rf
-        out = model(self._image(images), self._intr, self._extr, self._tensor(ego))
+        out = model(self._image(images), self._intr, self._extr, ego)
         occupancy = torch.logical_or(out['segmentation'].argmax(-1),
                                      out['pedestrian'].argmax(-1)).to(self.dtype)
         gt_dummy = torch.zeros(1, self.n_future, 3, dtype=self.dtype, device=self.device)
-        _, traj = model.plan(out['cam_front'], self._tensor(trajs, self.dtype), gt_dummy,
-                             out['costvolume'][:, rf:], occupancy[:, rf:], out['hdmap'],
-                             self._tensor(cmd), self._tensor(tp, self.dtype))
+        _, traj = model.plan(out['cam_front'], trajs, gt_dummy, out['costvolume'][:, rf:],
+                             occupancy[:, rf:], out['hdmap'], cmd, tp)
         return traj, out
+
+    def _host_args(self, ego, trajs, cmd, tp):
+        """The tick's host arrays on the device, in the compiled calls' dtypes."""
+        return (self._tensor(ego), self._tensor(trajs, self.dtype), self._tensor(cmd),
+                self._tensor(tp, self.dtype))
 
     @torch.inference_mode()
     def _warmup(self):
-        """Run the tick's calls once on zeros (first-call set-up off the
-        first planned tick)."""
+        """Compile the tick's calls on zeros (the capture off the first
+        planned tick); on the CPU, run them once."""
         h = self.crop
-        ego = np.zeros((1, self.rf, 6), np.float32)
-        trajs = np.zeros((1, self.n_samples, self.n_future, 3), np.float32)
-        cmd = np.zeros((1,), np.int32)
-        tp = np.zeros((1, 2), np.float32)
+        ego, trajs, cmd, tp = self._host_args(
+            np.zeros((1, self.rf, 6), np.float32),
+            np.zeros((1, self.n_samples, self.n_future, 3), np.float32),
+            np.zeros((1,), np.int32), np.zeros((1, 2), np.float32))
         if self.incremental:
-            img1 = np.zeros((1, 4, h, h, 3), np.uint8)
-            bev = self._splat_one(img1)
+            img1 = self._tensor(np.zeros((1, 4, h, h, 3), np.uint8))
+            bev = self._splat(img1)
             cache = torch.zeros((1, self.rf - 1) + tuple(bev.shape[1:]), dtype=bev.dtype,
                                 device=self.device)
-            traj, _, _ = self._serve_one(img1, ego, cache, trajs, cmd, tp)
+            traj, _, _ = self._serve(img1, ego, cache, trajs, cmd, tp)
         else:
-            imgs = np.zeros((1, self.rf, 4, h, h, 3), np.uint8)
+            imgs = self._tensor(np.zeros((1, self.rf, 4, h, h, 3), np.uint8))
             traj, _ = self._infer(imgs, ego, trajs, cmd, tp)
         traj.cpu()
 
@@ -176,17 +200,19 @@ class AgentCore:
         tp = np.asarray(target_point, np.float32)[None]
 
         with torch.inference_mode():
+            args = self._host_args(ego, trajs[None, :, 1:], cmd, tp)
             if self.incremental:
-                new_img = self.buffer_rgb[-1][None]                  # (1, 4, H, W, 3)
+                new_img = self._tensor(self.buffer_rgb[-1][None])   # (1, 4, H, W, 3)
                 if self._bev_cache is None:
                     # first planned tick: splat the buffered past frames once
                     self._bev_cache = torch.stack(
-                        [self._splat_one(f[None]) for f in list(self.buffer_rgb)[:-1]], 1)
-                traj, _, self._bev_cache = self._serve_one(
-                    new_img, ego, self._bev_cache, trajs[None, :, 1:], cmd, tp)
+                        [self._splat(self._tensor(f[None])) for f in list(self.buffer_rgb)[:-1]],
+                        1)
+                traj, _, self._bev_cache = self._serve(new_img, args[0], self._bev_cache,
+                                                       *args[1:])
             else:
-                images = np.stack(list(self.buffer_rgb))[None]       # (1, rf, 4, H, W, 3)
-                traj, _ = self._infer(images, ego, trajs[None, :, 1:], cmd, tp)
+                images = self._tensor(np.stack(list(self.buffer_rgb))[None])  # (1, rf, 4, H, W, 3)
+                traj, _ = self._infer(images, *args)
             waypoints = traj[0, :, :2].float().cpu().numpy()
         steer, throttle, brake, metadata = control_pid(
             waypoints, speed, self.turn_controller, self.speed_controller)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters
+from stp3_tpu_torch.utils.device import constant
 from stp3_tpu_torch.utils.rasterize import polygon
 
 
@@ -92,7 +93,7 @@ class CostFunction:
         self._fp_lam = ego_footprint_offsets(xb, yb, zb, self.W, self.H, lam_pad)
 
     def _dx(self, like: torch.Tensor) -> torch.Tensor:
-        return torch.as_tensor(self.dx, device=like.device)
+        return constant(tuple(self.dx.tolist()), torch.float32, like.device)
 
     # ---------------------------------------------------------------- utils
     def _footprint_map(self, grid: torch.Tensor, footprint: np.ndarray):
@@ -250,7 +251,7 @@ class CostFunction:
     # ------------------------------------------------------------ aggregate
     def __call__(self, cost_volume, trajs, semantic_pred, lane_divider,
                  drivable_area, target_points):
-        trajs = trajs * torch.tensor([-1.0, 1.0], dtype=trajs.dtype, device=trajs.device)
+        trajs = trajs * constant((-1.0, 1.0), trajs.dtype, trajs.device)
         safety = self.safety_term(trajs, semantic_pred).clamp(0, 100)
         headway = self.headway_term(trajs, semantic_pred, drivable_area).clamp(0, 100)
         lrdiv = self.lr_divider_term(trajs, lane_divider).clamp(0, 100)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from stp3_tpu_torch.layers.base import Dense, to_first
 from stp3_tpu_torch.layers.convolutions import Bottleneck
 from stp3_tpu_torch.models.cost import CostConfig, CostFunction
+from stp3_tpu_torch.utils.device import constant
 
 CMD_LEFT, CMD_FORWARD, CMD_RIGHT, CMD_OTHER = 0, 1, 2, 3
 
@@ -146,5 +147,5 @@ class Planning(nn.Module):
         diff = out - gt_trajs[..., :2]
         absd = diff.abs()
         huber = torch.where(absd < 1.0, 0.5 * diff ** 2, absd - 0.5)
-        weight = torch.tensor([10.0, 1.0], device=huber.device)     # fp32, as in JAX
+        weight = constant((10.0, 1.0), torch.float32, huber.device)  # fp32, as in JAX
         return loss * 0.5 + (huber * weight).mean(), out3

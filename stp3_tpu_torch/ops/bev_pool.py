@@ -21,6 +21,7 @@ from stp3_tpu_torch.ops.geometry import cumulative_prewarp_transforms
 from stp3_tpu_torch.ops.kernels.bev_splat import (bev_pool_v1, bev_pool_v2, bev_splat,
                                                  overflow_out_of_range)
 from stp3_tpu_torch.ops.kernels.lift_splat import lift_splat_frames
+from stp3_tpu_torch.utils.device import constant
 
 METHODS = ('auto', 'pallas2b', 'pallas', 'pallas2', 'sort', 'scatter')
 _PER_FRAME = {'pallas': bev_pool_v1, 'pallas2': bev_pool_v2}
@@ -30,10 +31,9 @@ def voxelize_coords(points: torch.Tensor, bev_resolution, bev_start_position,
                     bev_dimension) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ego-frame points -> int32 cell coords + validity mask.
     index = (p - (start - res/2)) / res, truncated toward zero."""
-    kw = dict(dtype=points.dtype, device=points.device)
-    res = torch.as_tensor(np.asarray(bev_resolution), **kw)
-    start = torch.as_tensor(np.asarray(bev_start_position), **kw)
-    dim = torch.as_tensor(np.asarray(bev_dimension, np.int32), device=points.device)
+    res, start = (constant(tuple(np.asarray(v).tolist()), points.dtype, points.device)
+                  for v in (bev_resolution, bev_start_position))
+    dim = constant(tuple(np.asarray(bev_dimension).tolist()), torch.int32, points.device)
     coords = ((points - (start - res / 2.0)) / res).to(torch.int32)
     valid = ((coords >= 0) & (coords < dim)).all(-1)
     return coords, valid

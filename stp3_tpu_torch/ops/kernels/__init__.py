@@ -7,3 +7,13 @@ csrc/lift_splat.cu), each built by nvcc at first use. A wrapper
 takes the plain version only for CPU tensors; for a CUDA tensor it
 launches its kernel or raises.
 """
+
+
+def launch_counters() -> dict:
+    """Each kernel's launch counter, by name: the wrapper whose
+    ``launches`` attribute it is (raised once for each launch)."""
+    from stp3_tpu_torch.ops.kernels import bev_splat, convnext_mlp, lift_splat
+    return {'bev_splat': bev_splat.bev_splat_accumulate, 'bev_pool_v1': bev_splat.bev_pool_v1,
+            'bev_pool_v2': bev_splat.bev_pool_v2, 'convnext_mlp': convnext_mlp.convnext_mlp,
+            'gather_rows': bev_splat.gather_rows,
+            'lift_splat': lift_splat.lift_splat_accumulate}

@@ -2,6 +2,8 @@
 and a device."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -29,3 +31,14 @@ def as_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@functools.lru_cache(maxsize=64)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 1-D tensor of constant ``values``, made once for each dtype and
+    device and shared; callers do not write to it. A constant made from
+    the host on every call is a host-to-device copy in every step, which
+    waits for the stream to drain and which a CUDA graph cannot capture.
+    Made outside inference mode, so autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)

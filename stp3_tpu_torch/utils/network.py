@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stp3_tpu_torch.utils.device import constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -18,9 +20,9 @@ def prepare_image(image: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     is only cast."""
     if image.dtype != torch.uint8:
         return image.to(dtype)
-    kw = dict(dtype=torch.float32, device=image.device)
+    mean, std = (constant(v, torch.float32, image.device) for v in (IMAGENET_MEAN, IMAGENET_STD))
     x = image.to(torch.float32) / 255.0
-    x = (x - torch.tensor(IMAGENET_MEAN, **kw)) / torch.tensor(IMAGENET_STD, **kw)
+    x = (x - mean) / std
     return x.to(dtype)
 
 

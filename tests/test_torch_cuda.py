@@ -488,3 +488,115 @@ def test_metric_increments_on_the_card_equal_the_cpus(cuda):
     assert torch.equal(incs[1][:2], incs[0][:2])
     torch.testing.assert_close(incs[1][2], incs[0][2], rtol=1e-6, atol=0)
     assert incs[0][1].sum() > 0
+
+
+# ------------------------------------------------- compiled calls (CUDA graphs)
+@pytest.fixture(scope='module')
+def tiny_agent():
+    """The tiny agent of tests/test_torch_agent.py (4 cameras at 64x64 at
+    the JAX test config's widths, GRU state 2, fp32) on the card, seeded
+    weights; TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (CUDA graphs have no CPU mode)')
+    import chip_smoke
+    from stp3_tpu_torch.layers.base import init_parameters
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.utils.precision import pin_fp32_math
+    pin_fp32_math()
+    cfg = chip_smoke.make_cfg(chip_smoke.TINY, {
+        'BATCHSIZE': 1, 'PRECISION': 32,
+        'IMAGE': {'FINAL_DIM': (64, 64), 'NAMES': ['A', 'B', 'C', 'D']}})
+    model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
+    return cfg, model.to('cuda').eval()
+
+
+def _tick_inputs(cfg, device, full: bool):
+    import numpy as np
+    rng = np.random.RandomState(3)
+    rf, h = cfg.TIME_RECEPTIVE_FIELD, cfg.IMAGE.FINAL_DIM[0]
+    frames = torch.as_tensor(rng.randint(0, 256, (1, rf, 4, h, h, 3), np.uint8), device=device)
+    ego = torch.as_tensor(np.tile(np.array([2.0, 0, 0, 0, 0, 0.01], np.float32), (1, rf, 1)),
+                          device=device)
+    trajs = torch.as_tensor(rng.randn(1, cfg.PLANNING.SAMPLE_NUM, cfg.N_FUTURE_FRAMES, 3),
+                            dtype=torch.float32, device=device)
+    cmd = torch.tensor([1], dtype=torch.int32, device=device)
+    tp = torch.tensor([[0.0, 5.0]], device=device)
+    return frames if full else frames[:, -1], frames, ego, trajs, cmd, tp
+
+
+@pytest.mark.parametrize('mode', ['full', 'incremental', 'static'])
+def test_agent_tick_graphs_equal_eager(tiny_agent, mode):
+    """Each tick mode's compiled call (captured in AgentCore's warm-up) on
+    one tick's arguments against the function it captured, run eagerly:
+    the refined trajectory, the segmentation logits and the new BEV cache
+    at rtol 1e-4, atol 1e-5 (K1 adds in fp32 atomics); the launches in the
+    graph equal the eager call's; replays launch nothing."""
+    from stp3_tpu_torch.deploy.agent_core import AgentCore
+    from stp3_tpu_torch.ops.kernels import launch_counters
+    cfg, model = tiny_agent
+    kw = {'full': dict(incremental=False), 'incremental': dict(static_geometry=False),
+          'static': {}}[mode]
+    core = AgentCore(cfg, model, device='cuda', **kw)
+    call = core._infer if mode == 'full' else core._serve
+    assert call.captures == 1
+    img, frames, ego, trajs, cmd, tp = _tick_inputs(cfg, 'cuda', mode == 'full')
+    if mode == 'full':
+        args = (img, ego, trajs, cmd, tp)
+    else:
+        cache = torch.stack([core._splat(frames[:, t])
+                             for t in range(cfg.TIME_RECEPTIVE_FIELD - 1)], 1)
+        args = (img, ego, cache, trajs, cmd, tp)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        want = call.fn(*args)
+    eager = {name: fn.launches for name, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    got = call(*args)
+    assert call.captures == 1
+    assert all(fn.launches == 0 for fn in counters.values())
+    assert call.launches_per_call == eager
+    assert eager['bev_splat'] == (0 if mode == 'static' else 1)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[1]['segmentation'], want[1]['segmentation'],
+                               rtol=1e-4, atol=1e-5)
+    if mode != 'full':
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-5)
+
+
+def test_a_capture_that_synchronises_raises(cuda):
+    """A function that reads a value back to the host cannot be captured:
+    the compiled call raises (no eager run on the card) and the device
+    stays usable."""
+    from stp3_tpu_torch.utils import graphs
+    call = graphs.compiled(lambda x: x * x.sum().item())
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match='CUDA graph capture of .* failed'):
+        call(x)
+    assert call.captures == 0
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device=cuda))
+    assert torch.randn(3, device=cuda).isfinite().all()      # the generator left its capture
+    with pytest.raises(ValueError, match='CUDA tensors only'):
+        call(x, torch.ones(1))
+
+
+def test_compiled_parameters_new_shapes_and_moved_storage(cuda):
+    """A graph reads its module's parameters where they lay at capture:
+    an in-place update (load_state_dict) is read, a new input shape
+    captures a second graph, a parameter whose storage moved raises."""
+    from stp3_tpu_torch.utils import graphs
+    layer = torch.nn.Linear(8, 8).to(cuda)
+    call = graphs.compiled(layer, layer)
+    x = torch.randn(2, 8, device=cuda)
+    with torch.no_grad():
+        torch.testing.assert_close(call(x), layer(x))
+        layer.load_state_dict({k: v * 2 for k, v in layer.state_dict().items()})
+        torch.testing.assert_close(call(x), layer(x))
+        torch.testing.assert_close(call(x[:1]), layer(x[:1]))
+    assert call.captures == 2
+    layer.weight.data = layer.weight.data.clone()
+    with pytest.raises(RuntimeError, match='moved'):
+        call(x)
