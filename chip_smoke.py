@@ -49,9 +49,22 @@ Phases, each printing one line (or a few) before the last:
      seeded init under the bf16 policy: forward + occupancy + plan as
      bench.py times it, its launch counts and its p50 latency;
  10. training: the Planning stage at full width and batch 2 (bf16 policy,
-     fp32 masters, REMAT 'encoder', seeded init, synthetic batches): one
-     counted step, then 2 warm-up and 10 timed steps; loss terms finite,
-     parameters changed, step p50, samples/s and peak memory;
+     fp32 masters, REMAT 'encoder', seeded init, synthetic batches)
+     through the compiled train step (Trainer.train_step: two CUDA graphs,
+     the gradients' and the update's, captured after WARMUP_CALLS eager
+     steps): K1, K3 and K2 twice in the gradients' graph, none in the
+     update's, no counter moved by a replay, then 10 timed replayed steps;
+     loss terms finite, parameters changed, step p50, samples/s and peak
+     memory;
+     [train graphs]: the compiled step against the eager compute_gradients
+     + apply_gradients of a twin trainer of the same seed (and a second
+     twin: eager against eager), dropout on: the launches in both graphs,
+     wall p50 of both sides in alternating turns, the graphed step's
+     CUDA-event time and busy share, capture seconds, pool MiB and peak
+     memory, the generators equal after every step, loss terms and
+     parameter updates within GRAPH_LIMIT x eager vs eager; val_forward
+     compiled against eager at batch 2 and at a ragged batch of 1 (a
+     second graph); an fp32 trainer's capture (its pool) and replayed p50;
      [remat]: the same stage under each MODEL.REMAT tag of REMAT_TAGS
      ('encoder', each other stage with it, and encoder+temporal+decoder+
      cells), from one seeded init and batch: each step's loss terms and
@@ -59,7 +72,9 @@ Phases, each printing one line (or a few) before the last:
      distance between two 'encoder' reruns (the bf16 backward's order);
      launches (K1 and K3 once, K2 twice, 4 times under 'future' and
      'gates', whose recomputation runs the future stage's K2 again); peak
-     memory, and step p50 in 4 turns with a resident 'encoder' trainer;
+     memory, and step p50 in 4 turns with a resident 'encoder' trainer,
+     each tag's compiled step capturing its graphs (or raising, naming
+     the tag);
  11. [fused]: the flagship with fused_lift_splat: fp32 BEV features of the
      fused and materialised paths of the same weights, then forward + plan
      under the bf16 policy (K4 once, K2 twice, K1 never) and its p50; then
@@ -87,7 +102,8 @@ Phases, each printing one line (or a few) before the last:
  13. the stage train steps, each at full width from a seeded init on
      synthetic batches under its YAML's bf16 policy and REMAT 'encoder'
      (configured as code: PERCEPTION_STAGE, CARLA_PERCEPTION,
-     PREDICTION_BER), timed like phase 10, launches, loss terms finite,
+     PREDICTION_BER), compiled and timed like phase 10, launches in their
+     graphs, loss terms finite,
      parameters changed, p50, spread, samples/s, peak memory (K1 and K3
      at each stage's splat shape and K2 at Prediction_Ber's rows are held
      against their plain versions with the kernel phases above):
@@ -108,17 +124,20 @@ Phases, each printing one line (or a few) before the last:
      steps, validation on 4 samples, a checkpoint), then a resume for a
      second epoch whose step, Adam step and best IoU continue from the
      saved ones; which of tensorboard, moviepy and matplotlib the machine
-     has; launches per epoch (K1 and K3 once a train step, K1 once a val
-     forward, K2 twice each, and a panel forward every 2 steps where
-     tensorboard is present), train and val step p50, checkpoint bytes,
-     save and load ms; the profiler trace holds exactly steps 2 and 3 and
-     K1's, K3's and K2's kernels; visualise_output of a full-width val
-     forward is (T, 1400, 400, 3) uint8; DEBUG.NAN_CHECK on a NaN camera
-     image raises FloatingPointError with the parameters, Adam and the
-     step unchanged bit for bit;
+     has; the train steps, val forwards and panel forwards replay CUDA
+     graphs: the graphs' launches (K1, K3 and K2 twice in the gradients',
+     none in the update's, K1 and K2 twice in the validation call's) and
+     the counted launches of the eager and capturing calls an epoch, train
+     and val step p50, checkpoint bytes, save and load ms; the profiler
+     trace holds exactly steps 2 and 3 and K1's, K3's and K2's kernels;
+     visualise_output of a full-width val forward is (T, 1400, 400, 3)
+     uint8; DEBUG.NAN_CHECK on a NaN camera image, in a replayed step,
+     raises FloatingPointError with the parameters, Adam and the step
+     unchanged bit for bit;
  17. [evaluate_planning]: stp3_tpu_torch.evaluate.evaluate on that
-     checkpoint at batch 1 (4 samples: K1 once, K2 twice a sample): every
-     result key finite and in its range, samples/s;
+     checkpoint at batch 1 (4 samples, each a replay of the validation
+     call's graph: K1 once, K2 twice in it): every result key finite and
+     in its range, samples/s;
  18. [evaluate_prediction]: the same on a checkpoint of the
      Prediction.yml stage at full width (GAUSSIAN, instance and flow
      heads, 4 future frames), the panoptic metrics through the device
@@ -383,7 +402,7 @@ KERNELS = (
 PATHS = ('serving', 'train', 'per_frame', 'fused', 'agent', 'perception', 'perception_carla',
          'perception_bn', 'prediction_ber', 'bn_frozen', 'train_cli', 'evaluate_planning',
          'evaluate_prediction', 'reference_import', 'carla_agent', 'nuscenes_data', 'carla_data',
-         'dp_nccl', 'dp_ranks', 'cam_parallel', 'remat', 'graphs')
+         'dp_nccl', 'dp_ranks', 'cam_parallel', 'remat', 'graphs', 'train_graphs')
 
 
 def counters():
@@ -409,6 +428,59 @@ def expect_launches(what: str, launches: dict, **want) -> None:
     full = {name: want.get(name, 0) for name in launches}
     if launches != full:
         fail(f'{what}: launches {launches}, expected {full}')
+
+
+def scaled(per_call: dict, n: int) -> dict:
+    return {name: n * k for name, k in per_call.items()}
+
+
+def expect_graphed(what: str, call, **want) -> None:
+    """Fail unless the compiled call (utils/graphs) has captured a CUDA
+    graph and its last call's graph holds the launches in ``want`` and no
+    other."""
+    if not call.captures:
+        fail(f'{what}: no CUDA graph was captured')
+    expect_launches(f'{what} (launches in its CUDA graph)', dict(call.launches_per_call), **want)
+
+
+def expect_train_graphs(what: str, trainer, **want) -> None:
+    """A Trainer's compiled train step: ``want`` in the gradients' graph,
+    nothing in the update's (clip + Adam)."""
+    if not trainer.compiled:
+        fail(f'{what}: the trainer runs its steps eagerly')
+    expect_graphed(f"{what}: the gradients' call", trainer.graphs['gradients'], **want)
+    expect_graphed(f"{what}: the update's call", trainer.graphs['update'])
+
+
+def expect_no_launch_on_replay(what: str, fn) -> None:
+    """Fail if a call of ``fn`` (replaying graphs) moves a launch counter."""
+    reset_launches()
+    fn()
+    moved = {k: v for k, v in read_launches().items() if v}
+    if moved:
+        fail(f'{what}: a replay moved the launch counters {moved}')
+
+
+def warm_up_to_graphs(trainer, batch) -> int:
+    """Train steps on ``batch`` until the compiled step has captured its
+    graphs (the first WARMUP_CALLS steps run eagerly); returns the steps."""
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
+    n = 0
+    while not trainer.graphs['update'].captures:
+        if n > WARMUP_CALLS:
+            fail('the compiled train step captured no graph')
+        trainer.train_step(batch)
+        n += 1
+    return n
+
+
+def free_card() -> None:
+    """Give back what deleted objects held on the card: a Trainer and its
+    compiled calls refer to each other, so collect them first."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # the kernels' mangled template arguments; a substitution (S_, S0_, ...)
@@ -1227,7 +1299,7 @@ def phase_fused(cfg, device, card):
     if not ok:
         fail('fused and materialised BEV features differ')
     del model, got, want
-    torch.cuda.empty_cache()
+    free_card()
     return phase_flagship(cfg, device, card, fused=True)
 
 
@@ -1776,10 +1848,15 @@ def phase_train_parity(tiny_cfg, device):
 
 def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
     """A stage's training at full width and batch cfg.BATCHSIZE from a
-    seeded init on synthetic batches: one counted step (the launches in
-    ``want``, by default K1, K3 and K2 twice), 2 warm-up and ``timed``
-    timed steps; loss terms finite, most parameter tensors changed; the
-    step p50, spread, samples/s and peak memory."""
+    seeded init on synthetic batches, through the compiled train step:
+    its WARMUP_CALLS eager steps, the step that captures the gradients'
+    and the update's CUDA graphs, then ``timed`` timed steps replaying
+    them. The gradients' graph holds the launches in ``want`` (by default
+    K1, K3 and K2 twice), the update's none, a replay moves no counter,
+    and the counters of the whole run are the eager and capturing steps';
+    loss terms finite, most parameter tensors changed; the step p50,
+    spread, samples/s, peak memory and the graphs' pool. Returns (trainer,
+    batches, the run's launches)."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
     want = want or dict(bev_splat=1, gather_rows=1, convnext_mlp=2)
@@ -1794,13 +1871,21 @@ def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
     before = [p.detach().clone() for p in trainer.model.parameters()]
 
     reset_launches()
-    losses = [trainer.train_step(batches[0])]
+    losses = []
+    while not trainer.graphs['update'].captures and len(losses) < 8:
+        losses.append(trainer.train_step(batches[len(losses) % 2]))
     launches = read_launches()
-    expect_launches(f'{tag}: one train step', launches, **want)
-    say(f'[{tag}] launches in one train step: {launches}')
-
-    for i in range(2):                                           # warm-up
-        losses.append(trainer.train_step(batches[i % 2]))
+    expect_train_graphs(f'[{tag}] train step', trainer, **want)
+    expect_launches(f'[{tag}] {len(losses)} steps, the last capturing', launches,
+                    **scaled(want, len(losses)))
+    grads = trainer.graphs['gradients']
+    expect_no_launch_on_replay(f'[{tag}] a replayed train step',
+                               lambda: losses.append(trainer.train_step(batches[1])))
+    say(f'[{tag}] the compiled step: {len(losses) - 2} eager steps, then the CUDA graphs '
+        f'captured in {grads.capture_seconds + trainer.graphs["update"].capture_seconds:.2f} s '
+        f'(pool {grads.pool_bytes / 2 ** 20:.0f} MiB); launches in the gradients\' graph '
+        f'{grads.launches_per_call}, none in the update\'s, none counted on a replay; the '
+        f'run\'s counters {launches}')
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -1825,10 +1910,239 @@ def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
     say(f'[{tag}] {len(losses)} steps finite; {changed} of {len(before)} parameter tensors '
         f'changed; total loss {first["total"].item():.4f} -> {last["total"].item():.4f}; terms '
         f'of the last step {({k: round(v.item(), 4) for k, v in last.items()})}')
-    say(f'[{tag}] step p50 {p50:.2f} ms (median of {timed}, CUDA events; spread '
+    say(f'[{tag}] replayed step p50 {p50:.2f} ms (median of {timed}, CUDA events; spread '
         f'{min(times):.2f}-{max(times):.2f} ms), {b / p50 * 1e3:.3f} samples/s, peak memory '
-        f'{peak:.2f} GiB, on {card}')
+        f'allocated in the replays {peak:.2f} GiB, reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} '
+        f'GiB, on {card}')
     return trainer, batches, launches
+
+
+# [train graphs]: pairs of steps in alternating turns, and the limit of
+# graphed-vs-eager against eager-vs-eager (GRAPH_LIMIT, as [graphs]')
+TRAIN_GRAPH_TURNS = 4
+TRAIN_GRAPH_FLOOR = 1e-6
+
+
+def update_errors(got: list, want: list, start: list) -> list:
+    """Each parameter tensor's relative L2 distance of its update from
+    ``start`` from ``want``'s."""
+    out = []
+    for g, w, s in zip(got, want, start):
+        du = (w - s).float()
+        out.append(((g - w).float().norm() / du.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def train_distance(got: dict, want: dict) -> dict:
+    """How far one run of steps is from another: the loss terms' largest
+    difference over the steps relative to that step's total loss (the
+    uncertainty terms sit near zero), the parameters' updates (median and
+    worst relative L2 over the tensors)."""
+    loss = max(abs(g[k] - w[k]) / max(abs(w['total']), 1e-12)
+               for g, w in zip(got['loss'], want['loss']) for k in w)
+    errs = update_errors(got['params'], want['params'], want['start'])
+    return {'loss': loss, 'median': float(np.median(errs)), 'worst': max(errs)}
+
+
+def timed_wall(fn):
+    """(wall ms from a drained device to a drained device, the call's CUDA
+    event ms, fn's result)."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end), out
+
+
+def phase_train_graphs(cfg, device, card) -> dict:
+    """[train graphs]: the Planning stage at full width and batch 2 (bf16
+    policy over fp32 masters, REMAT 'encoder', dropout on, the latent from
+    the trainer's generator) through the compiled train step, against the
+    eager ``compute_gradients`` + ``apply_gradients`` of a twin trainer of
+    the same seed and of two more twins (eager against eager: the
+    yardstick, the larger of their distances from the first twin), all
+    taking the same batches. The compiled trainer's
+    eager warm-up steps and the step that captures its two graphs; K1 and
+    K3 once and K2 twice in the gradients' graph, nothing in the update's,
+    no counter moved by a replay; then TRAIN_GRAPH_TURNS turns of two
+    steps a side, alternating which side goes first: the wall p50 of
+    each, the graphed step's CUDA-event time and busy share (event /
+    wall), the twins' generators where the compiled trainer's is (the
+    replays draw what eager steps draw), and the loss terms of every step
+    and the parameters' updates graphed vs eager within GRAPH_LIMIT x
+    eager vs eager (or TRAIN_GRAPH_FLOOR). Capture seconds, the pool's
+    MiB, peak memory. Then ``val_forward`` compiled against its eager body
+    at batch 2 and at a ragged batch of 1 (a second graph), within
+    GRAPH_LIMIT x eager vs eager, with both p50s. Last, an fp32 trainer's
+    capture: its pool (cuDNN's fp32 workspaces) and replayed p50. Returns
+    the compiled trainer's launches (the counters of its run)."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer
+    batches = synthetic_batches(cfg, 2, device)
+    graphed = Trainer(cfg, device=device, seed=SEED)
+    names = ('eager', 'rerun', 'rerun2')
+    twins = [Trainer(cfg, device=device, seed=SEED) for _ in names]
+    start = [p.detach().clone() for p in graphed.model.parameters()]
+    runs = {name: {'loss': [], 'start': start} for name in ('graphed',) + names}
+    t_phase = time.perf_counter()
+
+    def eager_step(trainer, batch):
+        out = trainer.compute_gradients(batch)
+        trainer.apply_gradients()
+        return out
+
+    def record(name, loss):
+        runs[name]['loss'].append({k: v.item() for k, v in loss.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    n = 0
+    while not graphed.graphs['update'].captures:
+        if n > 6:
+            fail('[train graphs] the compiled step captured no graph')
+        record('graphed', graphed.train_step(batches[n % 2]))
+        n += 1
+    launches = read_launches()
+    grads, update = graphed.graphs['gradients'], graphed.graphs['update']
+    expect_train_graphs('[train graphs]', graphed, bev_splat=1, gather_rows=1, convnext_mlp=2)
+    for name, twin in zip(names, twins):
+        for i in range(n):
+            record(name, eager_step(twin, batches[i % 2]))
+    say(f'[train graphs] {cfg.TAG}, batch {cfg.BATCHSIZE}, {graphed.compute_dtype}: '
+        f'{grads.eager_calls} eager warm-up steps, then the gradients\' and the update\'s '
+        f'CUDA graphs captured in {grads.capture_seconds:.2f} s and '
+        f'{update.capture_seconds:.2f} s (pool {grads.pool_bytes / 2 ** 20:.0f} MiB and '
+        f'{update.pool_bytes / 2 ** 20:.0f} MiB); launches in the gradients\' graph '
+        f'{grads.launches_per_call}, in the update\'s none; the run\'s counters {launches}')
+    wall = {'graphed': [], 'eager': []}
+    event = {'graphed': [], 'eager': []}
+    steps = [('graphed', graphed, lambda tr, b: tr.train_step(b)),
+             ('eager', twins[0], eager_step)]
+    for turn in range(TRAIN_GRAPH_TURNS):
+        for name, trainer, step in (steps if turn % 2 == 0 else steps[::-1]):
+            for i in range(2):
+                if name == 'graphed' and turn == 0 and i == 0:
+                    reset_launches()
+                w, e, loss = timed_wall(lambda: step(trainer, batches[i % 2]))
+                if name == 'graphed' and turn == 0 and i == 0:
+                    moved = {k: v for k, v in read_launches().items() if v}
+                    if moved:
+                        fail(f'[train graphs] a replayed step moved the counters {moved}')
+                wall[name].append(w)
+                event[name].append(e)
+                record(name, loss)
+        for name, twin in zip(names[1:], twins[1:]):
+            for i in range(2):
+                record(name, eager_step(twin, batches[i % 2]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    for name, trainer in zip(('graphed',) + names, [graphed] + twins):
+        runs[name]['params'] = [p.detach().clone() for p in trainer.model.parameters()]
+    same_gen = all(torch.equal(graphed.generator.get_state(), t.generator.get_state())
+                   for t in twins)
+    if not same_gen or graphed.step != twins[0].step:
+        fail(f'[train graphs] after {graphed.step} steps the generators differ: the replays '
+             'drew otherwise than the eager steps')
+    got = train_distance(runs['graphed'], runs['eager'])
+    yards = [train_distance(runs[name], runs['eager']) for name in names[1:]]
+    yard = {m: max(y[m] for y in yards) for m in got}
+    limit = {m: max(GRAPH_LIMIT * v, TRAIN_GRAPH_FLOOR) for m, v in yard.items()}
+    bad = [k for run in runs.values() for loss in run['loss'] for k, v in loss.items()
+           if not np.isfinite(v)]
+    p50 = {k: float(np.median(v)) for k, v in wall.items()}
+    ev50 = {k: float(np.median(v)) for k, v in event.items()}
+    say(f'[train graphs] {graphed.step} steps a trainer, {TRAIN_GRAPH_TURNS} turns of 2: wall '
+        f'p50 graphed {p50["graphed"]:.2f} ms (spread {min(wall["graphed"]):.2f}-'
+        f'{max(wall["graphed"]):.2f}), eager {p50["eager"]:.2f} ms (spread '
+        f'{min(wall["eager"]):.2f}-{max(wall["eager"]):.2f}), {p50["eager"] / p50["graphed"]:.3f}x; '
+        f'the graphed step\'s device time (CUDA events around its two replays) '
+        f'{ev50["graphed"]:.2f} ms, busy (device / wall) {ev50["graphed"] / p50["graphed"]:.4f}; '
+        f'the eager step\'s event span {ev50["eager"]:.2f} ms (its stream waits for the host\'s '
+        f'launches: not a device time); {cfg.BATCHSIZE / p50["graphed"] * 1e3:.3f} '
+        f'samples/s graphed; peak memory allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB '
+        f'(four trainers); the generators equal after every step; on {card}')
+    say(f'[train graphs] graphed vs eager: loss terms rel {got["loss"]:.2e}, parameter updates '
+        f'median {got["median"]:.2e}, worst {got["worst"]:.2e}; eager vs eager (the yardstick): '
+        f'{yard["loss"]:.2e}, {yard["median"]:.2e}, {yard["worst"]:.2e}; limit {GRAPH_LIMIT:g}x '
+        f'it or {TRAIN_GRAPH_FLOOR:g}')
+    over = [m for m in got if got[m] > limit[m]]
+    if bad or over:
+        fail(f'[train graphs] loss terms not finite {bad[:3]} or beyond the limit {over}: '
+             f'{got} against {limit}')
+    del twins
+    free_card()
+    val_graphs(graphed, batches[0], card)
+    del graphed
+    free_card()
+    fp32_train_graph(cfg, device, batches, card)
+    say(f'[train graphs] the phase took {time.perf_counter() - t_phase:.1f} s')
+    return launches
+
+
+def val_graphs(trainer, batch, card) -> None:
+    """``val_forward`` compiled (the graph ``validate`` replays) against its
+    eager body, at the batch and at a ragged batch of its first row (a
+    second graph): the heads and the plan within GRAPH_LIMIT x eager vs
+    eager (or TRAIN_GRAPH_FLOOR); K1 once and K2 twice in each graph; both
+    wall p50s in turns."""
+    import torch
+    call = trainer.graphs['val']
+    keys = ('segmentation', 'pedestrian', 'hdmap', 'final_traj')
+    ragged = {k: v[:1] for k, v in batch.items()}
+    rows = []
+    for name, b in (('batch', batch), ('ragged', ragged)):
+        captures = call.captures
+        graphed, labels = trainer.val_forward(b)
+        eager = [trainer._val_forward(b)[0] for _ in range(2)]
+        if call.captures != captures + 1:
+            fail(f'[train graphs] val_forward at a {name} batch captured no new graph')
+        expect_graphed(f'[train graphs] val_forward ({name})', call, bev_splat=1,
+                       convnext_mlp=2)
+        want = {k: eager[0][k] for k in keys}
+        got = max(max_dist({k: graphed[k] for k in keys}, want).values())
+        yard = max(max_dist({k: eager[1][k] for k in keys}, want).values())
+        if got > max(GRAPH_LIMIT * yard, TRAIN_GRAPH_FLOOR):
+            fail(f'[train graphs] val_forward ({name}) graphed vs eager {got:.3e}, eager vs '
+                 f'eager {yard:.3e}')
+        times = {'graphed': [], 'eager': []}
+        for turn in range(4):
+            for side in (('graphed', 'eager') if turn % 2 == 0 else ('eager', 'graphed')):
+                fn = (lambda: trainer.val_forward(b)) if side == 'graphed' else (
+                    lambda: trainer._val_forward(b))
+                times[side] += wall_samples(fn, 2)
+        rows.append(f'{name} (batch {b["image"].shape[0]}): graphed vs eager max abs '
+                    f'{got:.3e} (eager vs eager {yard:.3e}); wall p50 graphed '
+                    f'{np.median(times["graphed"]):.2f} ms, eager {np.median(times["eager"]):.2f} '
+                    f'ms (8 calls a side in turns)')
+    say(f'[train graphs] val_forward, {call.captures} graphs (they grew the pool they share '
+        f'with the train step\'s graphs by {call.pool_bytes / 2 ** 20:.0f} MiB): '
+        + '; '.join(rows) + f'; on {card}')
+
+
+def fp32_train_graph(cfg, device, batches, card) -> None:
+    """The same stage under PRECISION 32 (TF32 off, as [train parity] left
+    it): the capture's pool, whose convolutions keep cuDNN's fp32
+    workspaces, and the replayed step's p50 (CUDA events)."""
+    import torch
+    from stp3_tpu_torch.training.trainer import Trainer
+    fp32 = cfg.clone()
+    fp32.PRECISION = 32
+    trainer = Trainer(fp32, device=device, seed=SEED)
+    t0 = time.perf_counter()
+    n = warm_up_to_graphs(trainer, batches[0])
+    warm_s = time.perf_counter() - t0
+    grads = trainer.graphs['gradients']
+    times = [timed_wall(lambda: trainer.train_step(batches[i % 2]))[1] for i in range(3)]
+    say(f'[train graphs] fp32: {n} steps to the capture ({warm_s:.1f} s), pool '
+        f'{(grads.pool_bytes + trainer.graphs["update"].pool_bytes) / 2 ** 20:.0f} MiB, capture '
+        f'{grads.capture_seconds:.2f} s; replayed step p50 {np.median(times):.2f} ms (CUDA '
+        f'events, 3 steps); reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; on {card}')
+    del trainer
+    free_card()
 
 
 def running_stats(model) -> dict:
@@ -1867,7 +2181,7 @@ def phase_perception_bn(cfg, device, card):
             fail(f'[perception bn] REMAT {remat!r}: a loss term is not finite')
         stats[remat] = running_stats(trainer.model)
         del trainer
-        torch.cuda.empty_cache()
+        free_card()
     change = max((stats['none'][k] - start[k]).abs().max().item() for k in start)
     diff = max((stats['encoder'][k] - stats['none'][k]).abs().max().item() for k in start)
     moved = sum(not torch.equal(stats['none'][k], start[k]) for k in start)
@@ -1950,17 +2264,19 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
     'encoder' steps (the larger of two reruns); its launches (K1 and K3
     once, K2 twice, and twice more where 'future' or 'gates' recomputes
     the future stage: K2 is a ctypes launch, which no checkpoint policy
-    sees, so it runs again in the recomputation). Then, after a warm-up,
-    one train step's peak ``max_memory_allocated`` and ``turns`` pairs of
-    train steps in turns with a resident 'encoder' trainer (CUDA events;
-    the tag first in every other pair): each tag's p50 beside 'encoder''s
-    of the same turns. Returns the launches of the counted steps, summed
-    over the tags."""
+    sees, so it runs again in the recomputation). Then the compiled train
+    step's warm-up steps and its capture (a tag whose recomputation cannot
+    be captured raises, naming the tag), the same launches in its
+    gradients' graph, one replayed step's peak ``max_memory_allocated``
+    and ``turns`` pairs of replayed train steps in turns with a resident
+    'encoder' trainer (CUDA events; the tag first in every other pair):
+    each tag's p50 beside 'encoder''s of the same turns. Returns the
+    launches of the counted (eager) steps, summed over the tags."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
     weights = {k: v.detach().clone()
                for k, v in Trainer(cfg, device=device, seed=SEED).model.state_dict().items()}
-    torch.cuda.empty_cache()
+    free_card()
     batch, = synthetic_batches(cfg, 1, device)
     ref = remat_numbers(remat_trainer(cfg, 'encoder', weights, device), batch)
     reruns = []
@@ -1969,7 +2285,7 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
         reruns.append(remat_distance(remat_numbers(base, batch), ref))
     yard = {m: max(r[m] for r in reruns) for m in reruns[0]}
     limit = {m: max(REMAT_MULTIPLE * v, REMAT_FLOOR) for m, v in yard.items()}
-    base.train_step(batch)                            # the resident 'encoder' trainer
+    warm_up_to_graphs(base, batch)                    # the resident 'encoder' trainer
     say(f'[remat] {cfg.TAG}, batch {cfg.BATCHSIZE}, PRECISION {cfg.PRECISION} over fp32 '
         f'masters: {len(ref[1])} gradients; two \'encoder\' reruns against the first: loss '
         f'terms rel {yard["loss"]:.2e}, gradients median {yard["median"]:.2e}, worst '
@@ -1994,7 +2310,9 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
         over = [m for m in dist if dist[m] > limit[m]]
         if over:
             fail(f'[remat] {tag!r}: {over} beyond the limit: {dist} against {limit}')
-        trainer.train_step(batch)                                    # warm-up
+        warm_up_to_graphs(trainer, batch)          # the compiled step captures, or raises
+        expect_train_graphs(f'[remat] {tag!r}', trainer, bev_splat=1, gather_rows=1,
+                            convnext_mlp=k2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         step_ms(trainer, batch)
@@ -2017,14 +2335,14 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
             f'{launches}; against \'encoder\': loss rel {dist["loss"]:.2e}, gradients median '
             f'{dist["median"]:.2e}, worst {dist["worst"]:.2e}; on {card}')
         del trainer
-        torch.cuda.empty_cache()
+        free_card()
     base_peak = rows[0][3]
     say('[remat] against \'encoder\' (p50 ratio in turns, peak GiB difference): ' + '; '.join(
         f'{tag} {ms / enc:.3f}x, {peak - base_peak:+.2f} GiB' for tag, ms, enc, peak in rows)
         + '; the resident \'encoder\' trainer, the weights, the batch and the reference '
         f'gradients are in every peak; on {card}')
     del base
-    torch.cuda.empty_cache()
+    free_card()
     return total
 
 
@@ -2043,7 +2361,7 @@ def profile_train(trainer, batches, card, steps: int = 3, tag: str = 'train'):
              'host issue of one step': []}
     for i in range(6):
         batch = batches[i % 2]
-        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer.optimizer.zero_grad(set_to_none=False)       # the graphs hold .grad
         (total, _), ev_loss = timed(lambda: trainer.loss_fn(batch))
         _, ev_bwd = timed(total.backward)
         _, ev_opt = timed(lambda: (torch.nn.utils.clip_grad_norm_(
@@ -2088,10 +2406,12 @@ def phase_train_cli(device, card, repo: str):
     epoch of 5 train steps, validation on 4 samples (2 val forwards) and a
     checkpoint; then a resume from that checkpoint for a second epoch,
     whose step, Adam step and best IoU must continue from the saved ones.
-    Launches per epoch: K1 once a train step and once a val forward, K3
-    once a train step, K2 twice each; with the tensorboard package also a
-    panel forward every VIS_INTERVAL steps (without it the CLI writes
-    nothing and runs none). The profiler trace must hold exactly steps 2
+    The train steps and the val forwards replay CUDA graphs: counted
+    launches an epoch are the train steps' up to the capturing one and the
+    validation call's warm-up and capture (K1 once a call, K3 once a train
+    step, K2 twice), its graphs hold K1, K3 and K2 twice (gradients),
+    nothing (update), K1 and K2 twice (val; the panels' forwards of the
+    train batches replay it too). The profiler trace must hold exactly steps 2
     and 3 and name K1's, K3's and K2's kernels. Then ``cli_panels_and_nan_check``.
     Returns (the last checkpoint, the launches of the first epoch)."""
     import glob
@@ -2110,31 +2430,47 @@ def phase_train_cli(device, card, repo: str):
         f'{m} {"present" if v else "absent"}' for m, v in have.items())
         + ' (without tensorboard the CLI writes no scalars or panels and runs no panel '
         'forward; add_video needs moviepy; the evaluation figures need matplotlib)')
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
     b = int(cfg.BATCHSIZE)
     steps, vals = 10 // b, -(-int(cfg.DATASET.VAL_SAMPLES) // b)
-
-    def want(first_step):
-        vis = sum(s % CLI_VIS_INTERVAL == 0 for s in range(first_step, first_step + steps)
-                  ) if have['tensorboard'] else 0
-        return dict(bev_splat=steps + vals + vis, gather_rows=steps,
-                    convnext_mlp=2 * (steps + vals + vis))
+    # counted: the train steps up to the capturing one, and the validation
+    # call's warm-up calls and capture (its one graph serves the panels'
+    # forwards of the train batches and the val batches: one shape, every
+    # val row valid); the replays count nothing
+    first_graphed = WARMUP_CALLS + 1
+    counted = min(steps, first_graphed)
+    want = dict(bev_splat=counted + first_graphed, gather_rows=counted,
+                convnext_mlp=2 * (counted + first_graphed))
 
     def log(msg):
         say(f'[train_cli] {msg}')
+
+    def check_graphs(what, rec):
+        g = rec['graphs']
+        if not rec['compiled'] or [g[k]['captures'] for k in ('gradients', 'update', 'val')] != [
+                1, 1, 1]:
+            fail(f'[train_cli] {what}: compiled {rec["compiled"]}, graphs {g}')
+        for name, want_in in (('gradients', dict(bev_splat=1, gather_rows=1, convnext_mlp=2)),
+                              ('update', {}), ('val', dict(bev_splat=1, convnext_mlp=2))):
+            expect_launches(f'[train_cli] {what}: the {name} graph', g[name]['launches'],
+                            **want_in)
 
     reset_launches()
     first = run(cfg, device, save_dir, log=log)
     launches = read_launches()
     expect_launches(f'[train_cli] epoch 1 ({steps} train steps, {vals} val forwards)',
-                    launches, **want(1))
-    say(f'[train_cli] launches in epoch 1: {launches}')
+                    launches, **want)
+    check_graphs('epoch 1', first)
+    say(f'[train_cli] launches in epoch 1: {launches} (the eager and capturing calls); in '
+        f'the graphs {({k: v["launches"] for k, v in first["graphs"].items()})}')
     check_cli_trace(glob.glob(os.path.join(save_dir, 'profile', '*.pt.trace.json')), card)
     resume = cfg.clone()
     resume.EPOCHS = 2
     resume.CHECKPOINT.RESUME = first['last']
     reset_launches()
     second = run(resume, device, save_dir, log=log)
-    expect_launches('[train_cli] the resumed epoch 2', read_launches(), **want(steps + 1))
+    expect_launches('[train_cli] the resumed epoch 2', read_launches(), **want)
+    check_graphs('the resumed epoch 2', second)
     state = ckpt_lib.load_checkpoint(second['last'])
     adam = {int(s['step']) for s in state['optimizer']['state'].values()}
     meta = ckpt_lib.load_meta(second['last'])
@@ -2208,10 +2544,11 @@ def check_cli_trace(paths: list, card: str) -> None:
 def cli_panels_and_nan_check(cfg, device, card: str) -> None:
     """The train panels of the card's outputs, outside the CLI's guard:
     ``visualise_output`` of a full-width val forward is (T, 7*200, 2*200,
-    3) uint8 of more than a few colours. Then DEBUG.NAN_CHECK: after a
-    clean step, a batch with one camera image of NaNs raises
-    FloatingPointError and leaves the parameters, Adam's state and the
-    step count bit for bit as they were."""
+    3) uint8 of more than a few colours. Then DEBUG.NAN_CHECK: after the
+    clean steps that capture the compiled step, a batch with one camera
+    image of NaNs (a replay of the gradients' graph) raises
+    FloatingPointError between the two graphs and leaves the parameters,
+    Adam's state and the step count bit for bit as they were."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
     from stp3_tpu_torch.utils.network import prepare_image
@@ -2228,7 +2565,7 @@ def cli_panels_and_nan_check(cfg, device, card: str) -> None:
     colours = len(np.unique(panel.reshape(-1, 3), axis=0))
     if panel.shape != (t, 7 * h, 2 * w, 3) or panel.dtype != np.uint8 or colours < 4:
         fail(f'[train_cli] panels {panel.shape} {panel.dtype}, {colours} colours')
-    trainer.train_step(batch)
+    warm_up_to_graphs(trainer, batch)              # the NaN step replays the graph
     params = [p.detach().clone() for p in trainer.model.parameters()]
     adam = {i: {k: v.clone() for k, v in st.items()}
             for i, st in trainer.optimizer.state_dict()['state'].items()}
@@ -2253,7 +2590,7 @@ def cli_panels_and_nan_check(cfg, device, card: str) -> None:
         f'FloatingPointError ({message}); parameters, Adam state and step {step} unchanged bit '
         f'for bit; on {card}')
     del trainer
-    torch.cuda.empty_cache()
+    free_card()
 
 
 def prediction_checkpoint(device, repo: str) -> str:
@@ -2281,16 +2618,23 @@ def result_in_range(key: str, value: float) -> bool:
 
 def phase_evaluate(path: str, ckpt: str, device, card, keys) -> dict:
     """[evaluate_*]: ``stp3_tpu_torch.evaluate.evaluate`` on a checkpoint at
-    batch 1 over the 4 validation samples: K1 once and K2 twice a sample;
-    the result ``keys`` exactly, each finite and in its range. Returns the
-    launches."""
+    batch 1 over the 4 validation samples, each a replay of the compiled
+    validation call (one graph: K1 once and K2 twice in it; the counters
+    move in its warm-up calls and its capture only); the result ``keys``
+    exactly, each finite and in its range. Returns the launches."""
     from stp3_tpu_torch.evaluate import evaluate
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
     stats = {}
     reset_launches()
     results = evaluate(ckpt, device, log=lambda msg: say(f'[{path}] {msg}'), stats=stats)
     launches = read_launches()
     n = stats['samples']
-    expect_launches(f'[{path}] {n} samples', launches, bev_splat=n, convnext_mlp=2 * n)
+    if stats['captures'] != 1:
+        fail(f'[{path}] the validation call captured {stats["captures"]} graphs, expected 1')
+    expect_launches(f'[{path}] the validation graph', stats['launches'], bev_splat=1,
+                    convnext_mlp=2)
+    expect_launches(f'[{path}] {n} samples, the counted calls', launches,
+                    bev_splat=WARMUP_CALLS + 1, convnext_mlp=2 * (WARMUP_CALLS + 1))
     if sorted(results) != sorted(keys):
         fail(f'[{path}] result keys {sorted(results)}, expected {sorted(keys)}')
     bad = {k: v for k, v in results.items() if not (np.isfinite(v) and result_in_range(k, v))}
@@ -2329,18 +2673,20 @@ def wall_ms(fn, reps: int) -> float:
 
 def eval_split(trainer, batch, tag: str, card) -> None:
     """Where a batch-1 evaluation forward's time goes with no loader
-    threads beside it: ``val_forward`` (labels, the parameters' cast to
-    the compute dtype, the forward and plan, the fp32 cast), its labels
-    alone and the cast alone; wall clock, median of 5 (--profile: a
-    torch.profiler window of 3 ``val_forward``)."""
+    threads beside it: ``val_forward`` (the compiled call of the labels,
+    the parameters' cast to the compute dtype, the forward and plan, the
+    fp32 cast), and eagerly its labels alone and the cast alone; wall
+    clock, median of 5 (--profile: a torch.profiler window of 3
+    ``val_forward``)."""
     import torch
     from stp3_tpu_torch.utils.precision import cast_parameters
     full = wall_ms(lambda: trainer.val_forward(batch), 5)
     with torch.no_grad():
         labels = wall_ms(lambda: trainer.prepare_future_labels(batch), 5)
         cast = wall_ms(lambda: cast_parameters(trainer.model, trainer.compute_dtype), 5)
-    say(f'[{tag}] val_forward at batch 1 alone {full:.2f} ms, of which labels {labels:.2f} ms '
-        f'and the parameters\' cast to {trainer.compute_dtype} {cast:.2f} ms (wall clock, '
+    say(f'[{tag}] val_forward at batch 1 alone {full:.2f} ms (the compiled call: its first '
+        f'call captures, the others replay); eagerly, its labels alone {labels:.2f} ms and the '
+        f'parameters\' cast to {trainer.compute_dtype} alone {cast:.2f} ms (wall clock, '
         f'median of 5); on {card}')
     if '--profile' in sys.argv[1:]:
         profile_window(lambda i: trainer.val_forward(batch), f'{tag} val_forward', card)
@@ -2713,7 +3059,7 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
                                           torch.cat(sink['picks']).tolist()))
     # each core holds its graphs' pool (up to ~18 GiB in fp32: PERF.md)
     del core, agent
-    torch.cuda.empty_cache()
+    free_card()
     # the comparison itself with deterministic algorithms: two runs of the same
     # ticks on the card differ by the order of their fp32 atomic adds (the
     # column splat's index_add_), which the line above shows
@@ -2727,7 +3073,7 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     finally:
         torch.use_deterministic_algorithms(False)
     del agent_d
-    torch.cuda.empty_cache()
+    free_card()
     got_d = np.array([[c['steer'], c['throttle'], c['brake']] for c in controls_d], np.float64)
     err = float(np.abs(got_d - np.array(direct_d, np.float64)).max())
     if err > 1e-5 or controls_d[:n_warm] != controls[:n_warm]:
@@ -2843,8 +3189,9 @@ def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
     of 4, in this process), the loader's samples/s with cfg.N_WORKERS
     process workers (an epoch without training, after one that starts the
     pool), then ``epochs`` epochs of train steps on the loader's batches
-    (launches counted over them; every loss term finite), the step p50
-    beside the loader's rate. Returns the launches."""
+    (the compiled step: its graphs' launches, the counters over the steps
+    up to the capturing one; every loss term finite), the step p50 beside
+    the loader's rate. Returns the launches."""
     import torch
     from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
     from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
@@ -2873,6 +3220,7 @@ def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
             f'{loader_s:.2f} s, its first epoch with the pool\'s start {first_s:.2f} s), on '
             f'{os.cpu_count()} host cores')
 
+        from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
         trainer = Trainer(cfg, device=device, seed=SEED)
         times, losses = [], []
         t0 = time.perf_counter()
@@ -2890,8 +3238,12 @@ def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
         launches = read_launches()
         loop_s = time.perf_counter() - t0
         steps = len(times)
-        expect_launches(f'[{tag}] {steps} train steps', launches, bev_splat=steps,
-                        gather_rows=steps, convnext_mlp=2 * steps)
+        counted = min(steps, WARMUP_CALLS + 1)
+        expect_train_graphs(f'[{tag}] train step', trainer, bev_splat=1, gather_rows=1,
+                            convnext_mlp=2)
+        expect_launches(f'[{tag}] {steps} train steps, {counted} counted (eager, capturing)',
+                        launches, bev_splat=counted, gather_rows=counted,
+                        convnext_mlp=2 * counted)
         for i, loss in enumerate(losses):
             bad = [k for k, v in loss.items() if not torch.isfinite(v).all()]
             if bad:
@@ -2907,7 +3259,7 @@ def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
             f'loader\'s {rate:.2f}: the loader {"can" if feeds else "cannot"} feed the card; the '
             f'loop (loader, copies, steps) {steps * b / loop_s:.3f} samples/s; on {card}')
         del trainer
-        torch.cuda.empty_cache()
+        free_card()
         return launches
     finally:
         trainloader.close()
@@ -2975,8 +3327,9 @@ def phase_dp_nccl(cfg, device, card) -> dict:
     the plain step's gradients all-reduced over the one rank and divided
     by 1, and the loss terms averaged, equal themselves bit for bit, and
     both trainers' clip + Adam on them leave parameters equal bit for bit.
-    One distributed step launches K1, K3 and K2 twice. Then the p50 of
-    both trainers' steps in turns, and the all-reduce of the ~42 MB of
+    The distributed step compiles over NCCL (the gradient all-reduce runs
+    between its two graphs): K1, K3 and K2 twice in its gradients' graph.
+    Then the p50 of both trainers' replayed steps in turns, and the all-reduce of the ~42 MB of
     fp32 gradients (one flat call) alone. Returns one step's launches."""
     import torch
     import torch.distributed as dist
@@ -3014,10 +3367,13 @@ def phase_dp_nccl(cfg, device, card) -> dict:
         if not same:
             fail('[dp nccl] clip + Adam on equal gradients left different parameters')
         reset_launches()
-        dp.train_step(batches[1])
+        n = warm_up_to_graphs(dp, batches[1])
         launches = read_launches()
-        expect_launches('[dp nccl] one distributed step', launches, bev_splat=1,
-                        gather_rows=1, convnext_mlp=2)
+        expect_train_graphs('[dp nccl] the distributed step', dp, bev_splat=1, gather_rows=1,
+                            convnext_mlp=2)
+        expect_launches(f'[dp nccl] {n} distributed steps, the last capturing', launches,
+                        bev_splat=n, gather_rows=n, convnext_mlp=2 * n)
+        warm_up_to_graphs(plain, batches[1])
         times = {'plain': [], 'dp': []}
         for turn in ('plain', 'dp', 'dp', 'plain') * 2:
             trainer = plain if turn == 'plain' else dp
@@ -3033,14 +3389,15 @@ def phase_dp_nccl(cfg, device, card) -> dict:
                             warmup=2, iters=10)
         say(f'[dp nccl] world 1 over NCCL: the gradients of {sum(1 for _ in dp.model.parameters())} '
             f'tensors all-reduced and divided by 1, the loss terms averaged, and clip + Adam '
-            f'on them: bit for bit the plain Trainer\'s; launches of one distributed step '
-            f'{launches}')
+            f'on them: bit for bit the plain Trainer\'s; the distributed step compiled, '
+            f'launches in its gradients\' graph {dp.graphs["gradients"].launches_per_call}, '
+            f'counted in its {n} steps to the capture {launches}')
         say(f'[dp nccl] step p50 plain {np.median(times["plain"]):.2f} ms, distributed '
             f'{np.median(times["dp"]):.2f} ms (8 each, in turns, CUDA events); the gradient '
             f'all-reduce alone ({n_bytes / 1e6:.1f} MB fp32, one flat call + the copies in and '
             f'out) p50 {reduce_ms:.3f} ms; on {card}')
         del plain, dp, batches
-        torch.cuda.empty_cache()
+        free_card()
         return launches
     finally:
         if dist.is_initialized():
@@ -3057,7 +3414,7 @@ def spawn_ranks(scenario: str, world: int, repo: str) -> list:
     from stp3_tpu_torch.parallel.launch import run_ranks
     out = os.path.join(repo, 'build', 'chip_smoke', f'ranks_{scenario}')
     os.makedirs(out, exist_ok=True)
-    torch.cuda.empty_cache()
+    free_card()
     t0 = time.perf_counter()
     try:
         outputs = run_ranks([sys.executable, os.path.abspath(__file__), '--rank', scenario,
@@ -3130,7 +3487,7 @@ def dp_compare(tag, cfg, device, group, rank) -> dict:
             batch = batch_to_device({k: v[order] for k, v in glob_np.items()}, device)
             noise = batch.pop('noise')
             ref.append(dp_step_numbers(Trainer(cfg, device=device, seed=SEED), batch, noise))
-            torch.cuda.empty_cache()
+            free_card()
     trainer = Trainer(cfg, device=device, seed=SEED, group=group)
     rows = mesh.shard_batch(glob_np, device, group)
     noise = rows.pop('noise')
@@ -3147,7 +3504,7 @@ def dp_compare(tag, cfg, device, group, rank) -> dict:
         out.update(split=dp_distance(mine_numbers, ref[0]), swapped=dp_distance(ref[1], ref[0]),
                    n_grads=len(ref[0]['grads']), n_stats=len(ref[0]['stats']))
     del trainer
-    torch.cuda.empty_cache()
+    free_card()
     return out
 
 
@@ -3163,6 +3520,8 @@ def rank_dp(out_dir: str) -> dict:
     result = {'dp': dp_compare('dp 2 ranks', fp32, device, group, rank)}
     # 3 bf16 steps through the kernels, each rank on its own batch of 1
     trainer = Trainer(planning_cfg(), device=device, seed=SEED, group=group)
+    if trainer.compiled:
+        fail(f'[dp 2 ranks] rank {rank}: a gloo group\'s trainer must step eagerly')
     batch = mesh.shard_batch(dp_global(fp32, device), device, group)
     batch.pop('noise')
     reset_launches()
@@ -3181,7 +3540,7 @@ def rank_dp(out_dir: str) -> dict:
         fail(f'[dp 2 ranks] rank {rank}: a bf16 loss term is not finite')
     result['bf16_ms'] = times
     del trainer
-    torch.cuda.empty_cache()
+    free_card()
     result['bn'] = dp_compare('dp bn', make_cfg(PLANNING_STAGE, {'PRECISION': 32,
                                                                  'MODEL': {'NORM': 'bn'}}),
                               device, group, rank)
@@ -3210,7 +3569,7 @@ def phase_dp_batch_split(device, card) -> None:
             batch = batch_to_device({k: v[rows] for k, v in glob_np.items()}, device)
             noise = batch.pop('noise')
             steps[name] = dp_step_numbers(Trainer(cfg, device=device, seed=SEED), batch, noise)
-            torch.cuda.empty_cache()
+            free_card()
     finally:
         torch.use_deterministic_algorithms(False)
     split = {'loss': {k: (steps['row0']['loss'][k] + steps['row1']['loss'][k]) / 2
@@ -3267,7 +3626,8 @@ def report_dp(results: list, card: str) -> dict:
         if over:
             fail(f'[{tag}] the 2-rank step is not the one-process global-batch step: {over}')
     for rank, r in enumerate(results):
-        say(f'[dp 2 ranks] rank {rank}: 3 bf16 steps at batch 1, launches {r["launches"]}, '
+        say(f'[dp 2 ranks] rank {rank}: 3 bf16 steps at batch 1, eager (a gloo group\'s '
+            f'collectives cannot be captured in a CUDA graph), launches {r["launches"]}, '
             f'step times {[round(t, 2) for t in r["bf16_ms"]]} ms (2 ranks sharing one '
             f'card, not a speed), on {card}')
     return {name: sum(r['launches'][name] for r in results) for name in results[0]['launches']}
@@ -3385,7 +3745,7 @@ def rank_cam(out_dir: str) -> dict:
             numbers[str(n_shards)] = split
         result[str(dt).replace('torch.', '')] = numbers
         del model
-        torch.cuda.empty_cache()
+        free_card()
     mesh.coordination_barrier()
     return result
 
@@ -3522,6 +3882,7 @@ def main() -> None:
     # shapes; CARLA's Planning stage at batch 2 splats 4 cameras of 256x256
     carla_cfg = carla_planning_cfg()
     for name in ('bev_splat', 'convnext_mlp', 'gather_rows'):
+        report[name]['train_graphs'] = report[name]['train']
         report[name]['train_cli'] = report[name]['train']
         report[name]['nuscenes_data'] = report[name]['train']
         report[name]['remat'] = report[name]['train']
@@ -3546,9 +3907,11 @@ def main() -> None:
     if '--profile' in sys.argv[1:]:
         profile_train(trainer, batches, card)
     del trainer, batches
-    torch.cuda.empty_cache()
+    free_card()
+    launches['train_graphs'] = phase_train_graphs(train_cfg, device, card)
+    free_card()
     launches['remat'] = phase_remat(train_cfg, device, card)
-    torch.cuda.empty_cache()
+    free_card()
     launches['fused'], *flagship = phase_fused(cfg, device, card)
     report['bev_splat']['agent'], per_tick, agent_p50, agent_model, cores = phase_agent(device,
                                                                                         card)
@@ -3557,7 +3920,7 @@ def main() -> None:
     launches['graphs'] = {name: sum(n['launches'].get(name, 0) for n in graph_numbers.values())
                           for name in counters()}
     del flagship, agent_model, cores
-    torch.cuda.empty_cache()
+    free_card()
     # the agent path: one steady tick of each of its three modes
     launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
                          for name in counters()}
@@ -3570,10 +3933,10 @@ def main() -> None:
         if '--profile' in sys.argv[1:]:
             profile_train(trainer, batches, card, tag=tag)
         del trainer, batches
-        torch.cuda.empty_cache()
+        free_card()
     launches['perception_bn'] = phase_perception_bn(
         stage_cfg('perception', False, {'MODEL': {'NORM': 'bn'}}), device, card)
-    torch.cuda.empty_cache()
+    free_card()
     launches['bn_frozen'], _, _ = phase_flagship(
         make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}), device, card, tag='bn_frozen')
     ckpt, launches['train_cli'] = phase_train_cli(device, card, repo)

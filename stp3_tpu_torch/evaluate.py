@@ -26,15 +26,13 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
-import torch
 
 from stp3_tpu_torch.config import get_cfg
 from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
-from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
+from stp3_tpu_torch.metrics import PlanningMetric
 from stp3_tpu_torch.training import checkpoint as ckpt_lib
 from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
 from stp3_tpu_torch.utils.device import resolve_device
-from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
 
 
 def eval_cfg(checkpoint_path: str, extra_opts=None, dataroot: str = ''):
@@ -60,10 +58,13 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
              log: Callable[[str], None] = print,
              stats: Optional[Dict[str, Any]] = None, dataroot: str = '',
              save_visualisations: bool = False) -> Dict[str, float]:
-    """The evaluation's results, {name: value}. ``stats``, if given,
-    receives ``samples``, the loop's wall-clock ``seconds`` and each
-    sample's ``forward_ms``: ``val_forward`` and the vehicle IoU update,
-    which reads its result back (wall clock). ``save_visualisations``:
+    """The evaluation's results, {name: value}. Each batch is one replay
+    of the trainer's compiled validation call (``Trainer.validate``: the
+    forward, every metric's increment and the instance decode on the
+    device) and one read back. ``stats``, if given, receives ``samples``,
+    the loop's wall-clock ``seconds``, each sample's ``forward_ms``
+    (``validate``, its read back included; wall clock), the validation
+    graph's ``launches`` (a kernel's launches in it) and ``captures``. ``save_visualisations``:
     the figure of every 100th sample into ``imgs_eval/<TAG>/`` (a figure
     that fails is reported and the evaluation goes on)."""
     device = resolve_device(device)
@@ -84,14 +85,9 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
             f'(step {state["step"]}) on {device}')
 
         rf = cfg.TIME_RECEPTIVE_FIELD
-        n_classes = len(cfg.SEMANTIC_SEG.VEHICLE.WEIGHTS)
         hdmap_class = cfg.SEMANTIC_SEG.HDMAP.ELEMENTS
-        metric_vehicle = IoUMetric(n_classes)
-        metric_pedestrian = (IoUMetric(n_classes)
-                             if cfg.SEMANTIC_SEG.PEDESTRIAN.ENABLED else None)
-        metric_hdmap = ([IoUMetric(2, absent_score=1.0) for _ in hdmap_class]
-                        if cfg.SEMANTIC_SEG.HDMAP.ENABLED else None)
-        metric_panoptic = PanopticMetric(n_classes) if cfg.INSTANCE_SEG.ENABLED else None
+        # the trainer's validation metrics, and the planning metric per
+        # second of horizon, fed the first 2 (i + 1) columns of its increments
         metric_planning = ([PlanningMetric(cfg, 2 * (i + 1))
                             for i in range(cfg.N_FUTURE_FRAMES // 2)]
                            if cfg.PLANNING.ENABLED else None)
@@ -105,30 +101,12 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
             if valid is not None and not np.asarray(valid).all():
                 raise ValueError('padding rows in a one-process evaluation')
             t1 = time.perf_counter()
-            output, labels = trainer.val_forward(batch)
-            metric_vehicle.update(output['segmentation'].argmax(-1)[:, rf - 1:],
-                                  labels['segmentation'][:, rf - 1:])
+            output, labels, host = trainer.validate(batch)
             forward_ms.append((time.perf_counter() - t1) * 1e3)
-            if metric_pedestrian is not None:
-                metric_pedestrian.update(output['pedestrian'].argmax(-1)[:, rf - 1:],
-                                         labels['pedestrian'][:, rf - 1:])
-            if metric_hdmap is not None:
-                for i, metric in enumerate(metric_hdmap):
-                    metric.update(output['hdmap'][..., 2 * i:2 * (i + 1)].argmax(-1),
-                                  labels['hdmap'][..., i])
-            if metric_panoptic is not None:
-                consistent = predict_instance_segmentation_and_trajectories(output)
-                metric_panoptic.update(consistent[:, rf - 1:], labels['instance'][:, rf - 1:])
-            if metric_planning is not None:
-                seg_lab = labels['segmentation'][:, rf:]
-                ped_lab = (labels['pedestrian'][:, rf:] if 'pedestrian' in labels
-                           else torch.zeros_like(seg_lab))
-                occupancy = torch.logical_or(seg_lab, ped_lab)
-                for i, metric in enumerate(metric_planning):
-                    t = (i + 1) * 2
-                    metric.update(output['final_traj'][:, :t],
-                                  labels['gt_trajectory'][:, 1:t + 1], occupancy[:, :t])
-            n_samples += int(batch['image'].shape[0])
+            trainer.add_increments(host)
+            for metric in metric_planning or ():
+                metric.add(host['planning'], host['samples'])
+            n_samples += host['samples']
             if save_path is not None and index % 100 == 0:
                 try:          # a figure must never stop the evaluation
                     from stp3_tpu_torch.utils.visualisation import save_eval_figure
@@ -139,14 +117,14 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
     finally:
         valloader.close()
 
-    results: Dict[str, float] = {'vehicle_iou': float(metric_vehicle.compute()[1])}
-    if metric_pedestrian is not None:
-        results['pedestrian_iou'] = float(metric_pedestrian.compute()[1])
-    if metric_hdmap is not None:
-        for name, metric in zip(hdmap_class, metric_hdmap):
+    results: Dict[str, float] = {'vehicle_iou': float(trainer.metric_vehicle_val.compute()[1])}
+    if trainer.metric_pedestrian_val is not None:
+        results['pedestrian_iou'] = float(trainer.metric_pedestrian_val.compute()[1])
+    if trainer.metric_hdmap_val is not None:
+        for name, metric in zip(hdmap_class, trainer.metric_hdmap_val):
             results[f'{name}_iou'] = float(metric.compute()[1])
-    if metric_panoptic is not None:
-        for key, value in metric_panoptic.compute().items():
+    if trainer.metric_panoptic_val is not None:
+        for key, value in trainer.metric_panoptic_val.compute().items():
             results[f'vehicle_{key}'] = float(value[1])
     if metric_planning is not None:
         for i, metric in enumerate(metric_planning):
@@ -157,7 +135,9 @@ def evaluate(checkpoint_path: str, device=None, extra_opts=None,
         log(f'{key} : {value:.6f}')
     log(f'{n_samples} samples in {seconds:.2f} s ({n_samples / seconds:.3f} samples/s)')
     if stats is not None:
-        stats.update(samples=n_samples, seconds=seconds, forward_ms=forward_ms)
+        val = trainer.graphs['val']
+        stats.update(samples=n_samples, seconds=seconds, forward_ms=forward_ms,
+                     launches=val.launches_per_call, captures=val.captures)
     return results
 
 

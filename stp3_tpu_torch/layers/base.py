@@ -31,6 +31,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from stp3_tpu_torch.parallel.mesh import differentiable_all_reduce
+from stp3_tpu_torch.utils import rng
 
 Padding = Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]
 
@@ -470,7 +471,9 @@ def remat(module: nn.Module, method: str, *args, policy: Optional[Callable] = No
         the module's own;
       * the random numbers: every ``torch.Generator`` among ``args`` is
         set back to its state at the call for the recomputation, and
-        restored after it;
+        restored after it (``utils/rng.py``: ``get_state`` / ``set_state``
+        on the CPU, the graph-safe states on the card, which also hold
+        inside a CUDA graph capture of a compiled training call);
       * its 'bn' sites normalise with the batch's statistics again (the
         same values: the same input) without a second running update.
 
@@ -481,22 +484,15 @@ def remat(module: nn.Module, method: str, *args, policy: Optional[Callable] = No
     bound = _Bound(module, method)
     params = {f'm.{k}': v for k, v in module.named_parameters()}
     gens = [a for a in args if isinstance(a, torch.Generator)]
-    start = [g.get_state() for g in gens]
+    start = [rng.snapshot(g) for g in gens]
     ran = []
 
     def run(params, *xs):
         if not ran:
             ran.append(True)
             return functional_call(bound, params, xs)
-        now = [g.get_state() for g in gens]
-        for g, s in zip(gens, start):
-            g.set_state(s)
-        try:
-            with running_stats_frozen(module):
-                return functional_call(bound, params, xs)
-        finally:
-            for g, s in zip(gens, now):
-                g.set_state(s)
+        with rng.rewound(gens, start), running_stats_frozen(module):
+            return functional_call(bound, params, xs)
 
     kw = {} if policy is None else {
         'context_fn': functools.partial(create_selective_checkpoint_contexts, policy)}

@@ -28,6 +28,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from stp3_tpu_torch.utils.device import constant
+
 
 def _future_discounts(s: int, n_present: int, discount: float, like: torch.Tensor
                       ) -> torch.Tensor:
@@ -46,7 +48,7 @@ def _weighted_ce(logits: torch.Tensor, target: torch.Tensor, class_weights,
     valid = target != ignore_index
     oh = F.one_hot(torch.where(valid, target, 0).long(), logp.shape[-1]).to(logp.dtype)
     nll = -(logp * oh).sum(-1)
-    w = oh @ torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)
+    w = oh @ constant(tuple(float(c) for c in class_weights), logits.dtype, logits.device)
     return torch.where(valid, nll * w, torch.zeros((), dtype=nll.dtype, device=nll.device))
 
 

@@ -12,11 +12,15 @@ stp3/metrics.py).
     maps), as in the JAX package.
 
 The per-batch increments of the IoU and planning metrics are computed on
-the tensors' device and come to the host as one small tensor per update;
-the totals accumulate on the host in int64 / float64 (fp32 or int32
-device sums lose counts over a nuScenes train-split evaluation). Each
-``state`` is a dict of additive arrays, so the states of several
-processes sum to the state of one run.
+the tensors' device (``iou_counts``, ``PlanningMetric.increments``; a
+per-row ``valid`` mask weights the padding rows of a ragged batch out
+there); ``update`` reads them back and adds them, ``add`` adds
+increments already on the host (a compiled validation call computes
+them all on the card and reads them back once a batch,
+``training/trainer.Trainer.validate``). The totals accumulate on the host
+in int64 / float64 (fp32 or int32 device sums lose counts over a
+nuScenes train-split evaluation). Each ``state`` is a dict of additive
+arrays, so the states of several processes sum to the state of one run.
 """
 from __future__ import annotations
 
@@ -34,14 +38,24 @@ from stp3_tpu_torch.utils.rasterize import polygon
 # =====================================================================
 # Semantic IoU
 # =====================================================================
-def iou_counts(prediction: torch.Tensor, target: torch.Tensor, n_classes: int) -> torch.Tensor:
+def _rows(valid: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row bool mask (B,) broadcast over the rows of ``like`` (B, ...)."""
+    return valid.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
+def iou_counts(prediction: torch.Tensor, target: torch.Tensor, n_classes: int,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(4, n_classes) int64 [tp, fp, fn, support] of one batch, on the
-    tensors' device."""
+    tensors' device; ``valid`` (B,) bool leaves out the rows it marks
+    False."""
     pred = prediction.reshape(-1)
     tgt = target.reshape(-1)
     cls = torch.arange(n_classes, device=pred.device)[:, None]
     is_p = pred[None, :] == cls
     is_t = tgt[None, :] == cls
+    if valid is not None:
+        keep = _rows(valid, prediction).expand(prediction.shape).reshape(1, -1)
+        is_p, is_t = is_p & keep, is_t & keep
     return torch.stack([(is_p & is_t).sum(1), (is_p & ~is_t).sum(1), (~is_p & is_t).sum(1),
                         is_t.sum(1)])
 
@@ -63,7 +77,10 @@ class IoUMetric:
 
     def update(self, prediction, target):
         pred = as_tensor(prediction)
-        counts = iou_counts(pred, as_tensor(target, pred.device), self.n_classes).cpu().numpy()
+        self.add(iou_counts(pred, as_tensor(target, pred.device), self.n_classes).cpu().numpy())
+
+    def add(self, counts: np.ndarray) -> None:
+        """Add a batch's ``iou_counts`` (host array)."""
         for k, row in zip(self.KEYS, counts):
             self.state[k] = self.state[k] + row.astype(np.int64)
 
@@ -134,10 +151,13 @@ class PlanningMetric:
         return seg[b_idx, t_idx, r, c].any(-1)
 
     def increments(self, trajs: torch.Tensor, gt_trajs: torch.Tensor,
-                   segmentation: torch.Tensor) -> torch.Tensor:
+                   segmentation: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(3, T) float64 [obj_col, obj_box_col, l2 summed over the batch]
         of one batch, on the tensors' device. trajs / gt_trajs (B, T, 3);
-        segmentation (B, T, H, W) {0, 1}."""
+        segmentation (B, T, H, W) {0, 1}; ``valid`` (B,) bool leaves out
+        the rows it marks False. Each column depends on its own frame
+        only, so the first t columns are a t-frame metric's increments."""
         nx, ny = int(self.bev_dimension[0]), int(self.bev_dimension[1])
         l2 = ((trajs[..., :2] - gt_trajs[..., :2]) ** 2).sum(-1).sqrt()      # (B, T)
         # the reference's * [-1, 1] (a negation is exact)
@@ -154,18 +174,28 @@ class PlanningMetric:
         b_idx = torch.arange(b, device=trajs.device)[:, None]
         t_idx = torch.arange(t, device=trajs.device)[None, :]
         occ = seg[b_idx, t_idx, yi.clamp(0, nx - 1).long(), xi.clamp(0, ny - 1).long()]
-        obj_col = (occ & inb & ~gt_box_coll).sum(0)
-        obj_box_col = (box_coll & ~gt_box_coll).sum(0)
+        counted = ~gt_box_coll
+        if valid is not None:
+            counted = counted & valid[:, None]
+            l2 = l2 * valid[:, None].to(l2.dtype)
+        obj_col = (occ & inb & counted).sum(0)
+        obj_box_col = (box_coll & counted).sum(0)
         return torch.stack([obj_col.double(), obj_box_col.double(), l2.sum(0).double()])
 
     def update(self, trajs, gt_trajs, segmentation):
         trajs = as_tensor(trajs)
         inc = self.increments(trajs, as_tensor(gt_trajs, trajs.device),
                               as_tensor(segmentation, trajs.device)).cpu().numpy()
+        self.add(inc, int(trajs.shape[0]))
+
+    def add(self, inc: np.ndarray, samples: int) -> None:
+        """Add a batch's ``increments`` (host array, its first
+        ``n_future`` columns) over ``samples`` samples."""
+        inc = inc[:, :self.n_future]
         self.state['obj_col'] += inc[0].astype(np.int64)
         self.state['obj_box_col'] += inc[1].astype(np.int64)
         self.state['l2'] += inc[2]
-        self.state['total'] += int(trajs.shape[0])
+        self.state['total'] += int(samples)
 
     def compute(self) -> Dict[str, np.ndarray]:
         total = float(max(self.state['total'], 1))

@@ -10,8 +10,8 @@ validation with the trainer's metrics, and a checkpoint
 (training/checkpoint.py) with a ``best`` pointer on the dynamic-class
 vehicle IoU. ``CHECKPOINT.RESUME`` restores the weights, Adam, the
 generator, the step and the monitor, and carries on where the run
-stopped: at the epoch the step falls in, with that epoch's shuffle
-order, up to EPOCHS in all (the reference Lightning trainer's
+stopped, in its run directory: at the epoch the step falls in, with that
+epoch's shuffle order, up to EPOCHS in all (the reference Lightning trainer's
 max_epochs; the JAX CLI runs EPOCHS more after a resume).
 ``PRETRAINED.LOAD_WEIGHTS`` with ``PRETRAINED.PATH`` warm-starts from a
 checkpoint of the previous stage without its decoder heads.
@@ -47,6 +47,13 @@ Around the steps, as the JAX CLI (train.py:52-229):
     ``FloatingPointError`` at the first NaN loss term or gradient, before
     the update.
 
+On the card the train steps, the validation and the panels' forwards
+replay CUDA graphs (``Trainer``'s compiled calls): the first train steps
+run eagerly, and the graphs are captured at the step after them, so after
+the warm start and the resume, which load the weights, Adam's state and
+the generator's state before any step. A gloo group trains
+eagerly (its collectives cannot be captured); the log says which.
+
 ``run(cfg, device)`` is the same run for a config built in code; under
 torchrun's environment it joins the process group first.
 """
@@ -66,7 +73,7 @@ from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
 from stp3_tpu_torch.training import checkpoint as ckpt_lib
 from stp3_tpu_torch.parallel import mesh
 from stp3_tpu_torch.training.trainer import Trainer
-from stp3_tpu_torch.utils import profiling
+from stp3_tpu_torch.utils import graphs, profiling
 
 
 class StepTimer:
@@ -161,8 +168,11 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
     ``ckpt_dir``, ``last`` (the newest checkpoint), ``start_step`` and
     ``start_best_iou`` (restored on resume, else 0 and -1), ``step``,
     ``best_iou``, the last epoch's ``metrics``, the last step's ``loss``,
-    and ``train_ms`` / ``val_ms``, each train and val step's time (every
-    rank returns the record; ``log`` is called on rank 0 only)."""
+    ``train_ms`` / ``val_ms``, each train and val step's time, whether the
+    train steps were ``compiled`` and the trainer's compiled calls'
+    ``graphs`` ({name: captures, and a kernel's launches in the last
+    call}) (every rank returns the record; ``log`` is called on rank 0
+    only)."""
     device = mesh.maybe_initialize_multihost(device)
     group = mesh.data_group()
     rank, world = mesh.process_index(group), mesh.process_count(group)
@@ -170,8 +180,9 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
     if not main:
         log = _quiet
     if save_dir is None:
-        save_dir = os.path.join(cfg.LOG_DIR, time.strftime('%d%B%Y_%H%M') + '_'
-                                + socket.gethostname() + '_' + cfg.TAG)
+        save_dir = _resumed_run_dir(cfg) or os.path.join(
+            cfg.LOG_DIR, time.strftime('%d%B%Y_%H%M') + '_' + socket.gethostname() + '_'
+            + cfg.TAG)
     save_dir = mesh.broadcast_string(save_dir, group)
     ckpt_dir = os.path.join(save_dir, cfg.CHECKPOINT.DIR)
     writer = profile_dir = None
@@ -194,6 +205,7 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
         log(f'device {device}; {world} rank(s) of batch {cfg.BATCHSIZE}; {cfg.TAG}: '
             f'{n_params / 1e6:.2f}M parameters, compute {trainer.compute_dtype}; '
             f'{len(trainloader)} train / {len(valloader)} val batches an epoch')
+        log(f'train steps: {_step_path(trainer, device)}')
 
         if cfg.PRETRAINED.LOAD_WEIGHTS and cfg.PRETRAINED.PATH:
             restored = ckpt_lib.load_checkpoint(cfg.PRETRAINED.PATH, map_location=device)
@@ -295,7 +307,10 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
                 if is_new_best:
                     log(f'new best val vehicle IoU {iou_dyn:.4f} -> {path}')
         record.update(step=trainer.step, best_iou=best_iou, train_ms=train_timer.ms(),
-                      val_ms=val_timer.ms())
+                      val_ms=val_timer.ms(), compiled=trainer.compiled,
+                      graphs={name: {'captures': call.captures,
+                                     'launches': dict(call.launches_per_call)}
+                              for name, call in trainer.graphs.items()})
         return record
     finally:
         profiler.close()
@@ -303,6 +318,30 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
             writer.close()
         trainloader.close()
         valloader.close()
+
+
+def _resumed_run_dir(cfg) -> Optional[str]:
+    """The run directory that CHECKPOINT.RESUME's checkpoint was saved in
+    (``<run dir>/<CHECKPOINT.DIR>/step_<n>``), where a resumed run goes on
+    writing; None without a resume or for a checkpoint saved elsewhere."""
+    if not cfg.CHECKPOINT.RESUME:
+        return None
+    ckpt_dir = os.path.dirname(ckpt_lib.resolve_checkpoint_path(cfg.CHECKPOINT.RESUME))
+    if os.path.basename(ckpt_dir) != cfg.CHECKPOINT.DIR:
+        return None
+    return os.path.dirname(ckpt_dir)
+
+
+def _step_path(trainer: Trainer, device: torch.device) -> str:
+    """Which path ``train_step`` takes, in words."""
+    if not trainer.compiled:
+        return (f'eager: the {torch.distributed.get_backend(trainer.group)} group\'s '
+                'collectives cannot be captured in a CUDA graph')
+    if device.type != 'cuda':
+        return 'compiled calls, run eagerly on the CPU'
+    return (f'compiled: CUDA graphs of the gradients and the update, captured after '
+            f'{graphs.WARMUP_CALLS} eager steps (after any warm start or resume), then '
+            'replayed; validation replays its own graph')
 
 
 def _quiet(_: str) -> None:

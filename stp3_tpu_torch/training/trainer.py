@@ -22,6 +22,25 @@ JAX trainer), leaving out the rows the loader's ``valid`` mask marks;
 'bn_frozen''s statistics are buffers, which neither the optimizer, the
 weight decay nor the clip sees (the JAX trainer's ``optax.masked``).
 
+On the card the steps are compiled fixed-shape calls (``utils/graphs``,
+the counterpart of the JAX trainer's jitted ``_train_step`` and
+``_val_forward``): ``train_step`` replays two CUDA graphs, the gradients'
+(``zero_grad`` in place, labels, forward, losses, backward) and the
+update's (clip + Adam), with the host's work between them (the NaN check,
+and with a group the gradient all-reduce); ``val_forward`` and
+``val_step`` replay one graph of the eval forward and every metric's
+increment (``validate``), read back once a batch. The parameters, Adam's
+moments and step count and the 'bn' statistics are updated in place, at
+the addresses the graphs read (the JAX step donates its state); each
+batch is copied into the graph's buffers. The first ``WARMUP_CALLS``
+train steps of a batch shape run eagerly, as real steps; a new batch
+shape (a ragged last validation batch) is a new graph, as jit traces
+again. The trainer's generator is registered with the graphs, so every
+replay draws new masks and latents and leaves the generator where the
+eager step would. A process group whose collectives cannot be captured
+(gloo) trains eagerly: ``compiled`` says which path ``train_step`` takes.
+On the CPU the same calls run eagerly.
+
 The optimizer is ``torch.nn.utils.clip_grad_norm_`` followed by
 ``torch.optim.Adam(weight_decay=...)``: the decay is added to the
 gradient before the moments, and Adam puts ``eps`` outside the square
@@ -51,26 +70,33 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from stp3_tpu_torch.layers.base import batch_norms, init_parameters
 from stp3_tpu_torch.losses import (depth_loss, hdmap_loss, segmentation_loss,
                                    spatial_regression_loss)
-from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
+from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric, iou_counts
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
 from stp3_tpu_torch.parallel import mesh
-from stp3_tpu_torch.utils.device import resolve_device
+from stp3_tpu_torch.utils import graphs
+from stp3_tpu_torch.utils.device import resolve_device, rows_to_device, to_host
 from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
+from stp3_tpu_torch.utils.instance_jit import decode_instances
 from stp3_tpu_torch.utils.network import prepare_image
 from stp3_tpu_torch.utils.precision import cast_parameters, policy_dtype
 
 
 def make_optimizer(cfg, params) -> torch.optim.Adam:
     """Adam with L2 decay added to the gradient (the clip runs in
-    ``Trainer.train_step``)."""
+    ``Trainer.train_step``). On the card ``capturable``: its step count
+    lives on the device, so a CUDA graph can take the step; torch has no
+    capturable Adam on the CPU."""
+    params = list(params)
     return torch.optim.Adam(params, lr=float(cfg.OPTIMIZER.LR),
-                            weight_decay=float(cfg.OPTIMIZER.WEIGHT_DECAY))
+                            weight_decay=float(cfg.OPTIMIZER.WEIGHT_DECAY),
+                            capturable=bool(params) and params[0].is_cuda)
 
 
 batch_to_device = mesh.batch_to_device
@@ -105,6 +131,19 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(
             mesh.rank_seed(seed, mesh.process_index(group)))
         self.step = 0                 # optimizer steps taken (restored on resume)
+        # the compiled calls; a gloo group's collectives cannot be captured
+        self.compiled = group is None or dist.get_backend(group) == 'nccl'
+        pool = graphs.Pool()
+        self.graphs = {
+            'gradients': graphs.compiled_step(
+                self._gradients, self.model, optimizer=self.optimizer,
+                generators=(self.generator,), device=self.device, pool=pool,
+                name=f'Trainer gradients (MODEL.REMAT {cfg.MODEL.REMAT!r})'),
+            'update': graphs.compiled_step(self._update, self.model, optimizer=self.optimizer,
+                                           device=self.device, pool=pool,
+                                           name='Trainer update (clip + Adam)'),
+            'val': graphs.compiled(self._validate, self.model, pool=pool),
+        }
 
         n_classes = len(cfg.SEMANTIC_SEG.VEHICLE.WEIGHTS)
         self.metric_vehicle_val = IoUMetric(n_classes)
@@ -228,13 +267,19 @@ class Trainer:
 
     def train_step(self, batch, noise=None, dropout: bool = True) -> Dict[str, torch.Tensor]:
         """One optimizer step; returns the detached loss dict with 'total'.
-        Nothing here waits for the device (but a gloo collective), unless
+        ``compiled``: the gradients' call, the host's work, the update's
+        call (each a CUDA graph on the card, after its warm-up steps);
+        else ``compute_gradients`` and ``apply_gradients``. Nothing here
+        waits for the device (but a gloo collective), unless
         DEBUG.NAN_CHECK: then ``check_nan`` reads the loss terms and the
         gradients back before the clip."""
-        out = self.compute_gradients(batch, noise, dropout)
+        gradients, update = ((self.graphs['gradients'], self.graphs['update']) if self.compiled
+                             else (self._gradients, self._update))
+        out = self._reduce(gradients(batch, noise=noise, dropout=dropout))
         if self.cfg.DEBUG.NAN_CHECK:
             self.check_nan(out)
-        self.apply_gradients()
+        update()
+        self.step += 1
         return out
 
     def check_nan(self, loss: Mapping[str, torch.Tensor]) -> None:
@@ -257,23 +302,38 @@ class Trainer:
     def compute_gradients(self, batch, noise=None,
                           dropout: bool = True) -> Dict[str, torch.Tensor]:
         """The gradients of the step into ``.grad``, averaged over the
-        ranks; returns the detached loss dict with 'total' (the ranks'
-        mean)."""
-        self.optimizer.zero_grad(set_to_none=True)
+        ranks, eagerly; returns the detached loss dict with 'total' (the
+        ranks' mean)."""
+        return self._reduce(self._gradients(batch, noise, dropout))
+
+    def apply_gradients(self) -> None:
+        """Clip the (global) gradient norm, then Adam, eagerly."""
+        self._update()
+        self.step += 1
+
+    def _gradients(self, batch, noise, dropout) -> Dict[str, torch.Tensor]:
+        """The gradients' call: ``.grad`` zeroed in place (the graphs keep
+        their addresses; a parameter without a gradient keeps none), the
+        loss and backward; the detached loss terms with 'total'."""
+        self.optimizer.zero_grad(set_to_none=False)
         total, loss = self.loss_fn(batch, noise, dropout)
         total.backward()
         out = {k: v.detach() for k, v in loss.items()}
         out['total'] = total.detach()
-        if self.group is not None:
-            mesh.allreduce_gradients(self.model.parameters(), self.group)
-            out = mesh.allreduce_mean(out, self.group)
         return out
 
-    def apply_gradients(self) -> None:
-        """Clip the (global) gradient norm, then Adam."""
+    def _reduce(self, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """With a group: the gradients and the loss terms averaged over the
+        ranks (between the gradients' and the update's calls)."""
+        if self.group is None:
+            return out
+        mesh.allreduce_gradients(self.model.parameters(), self.group)
+        return mesh.allreduce_mean(out, self.group)
+
+    def _update(self) -> None:
+        """The update's call: clip the (global) gradient norm, then Adam."""
         torch.nn.utils.clip_grad_norm_(self.model.parameters(), float(self.cfg.GRAD_NORM_CLIP))
         self.optimizer.step()
-        self.step += 1
 
     def broadcast_state(self) -> None:
         """Rank 0's parameters and buffers on every rank (at start, after
@@ -281,14 +341,20 @@ class Trainer:
         if self.group is not None:
             mesh.broadcast_module(self.model, self.group)
 
-    @torch.no_grad()
     def val_forward(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         """(output, labels) of a batch: the model in eval mode (no masks, no
         noise, 'bn' on its running statistics) with the policy's parameter
         copies; with a planner also ``final_traj``, planned on the
         predicted occupancy. The output is cast to fp32 before anything
         takes an argmax of it (ties among bf16 logits break otherwise than
-        among fp32 ones); the labels are ``prepare_future_labels``'."""
+        among fp32 ones); the labels are ``prepare_future_labels``'. The
+        compiled validation call (the graph ``validate`` replays)."""
+        batch = {k: v for k, v in batch.items() if k != 'valid'}
+        output, labels, _, _ = self.graphs['val'](batch, None)
+        return output, labels
+
+    @torch.no_grad()
+    def _val_forward(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
         model, rf, dt = self.model, self.rf, self.compute_dtype
         labels = self.prepare_future_labels(batch)
         params_c = cast_parameters(model, dt)
@@ -311,49 +377,94 @@ class Trainer:
             model.train()
         return _to_fp32(output), labels
 
+    def metric_increments(self, output, labels, valid=None) -> Dict[str, torch.Tensor]:
+        """Each validation metric's increment of a batch, on the device:
+        the IoU counts of vehicles, pedestrians and each HD-map element, the
+        planning metric's (3, N_FUTURE_FRAMES) increments; ``valid`` (B,)
+        bool weights the padding rows out."""
+        rf = self.rf
+        inc = {'vehicle': iou_counts(output['segmentation'].argmax(-1)[:, rf - 1:],
+                                     labels['segmentation'][:, rf - 1:],
+                                     self.metric_vehicle_val.n_classes, valid)}
+        if self.metric_pedestrian_val is not None:
+            inc['pedestrian'] = iou_counts(output['pedestrian'].argmax(-1)[:, rf - 1:],
+                                           labels['pedestrian'][:, rf - 1:],
+                                           self.metric_pedestrian_val.n_classes, valid)
+        for i, metric in enumerate(self.metric_hdmap_val or ()):
+            inc[f'hdmap_{i}'] = iou_counts(output['hdmap'][..., 2 * i:2 * (i + 1)].argmax(-1),
+                                           labels['hdmap'][..., i], metric.n_classes, valid)
+        if self.metric_planning_val is not None:
+            seg_lab = labels['segmentation'][:, rf:]
+            ped_lab = labels['pedestrian'][:, rf:] if 'pedestrian' in labels else (
+                torch.zeros_like(seg_lab))
+            inc['planning'] = self.metric_planning_val.increments(
+                output['final_traj'], labels['gt_trajectory'][:, 1:],
+                torch.logical_or(seg_lab, ped_lab), valid)
+        return inc
+
+    def _validate(self, batch, valid):
+        """The compiled validation call: (output, labels, the metric
+        increments, and with INSTANCE_SEG the per-frame instance ids
+        decoded on the device, else None)."""
+        output, labels = self._val_forward(batch)
+        ids = None
+        if self.metric_panoptic_val is not None:
+            ids = decode_instances(output['segmentation'], output['instance_center'],
+                                   output['instance_offset'])
+        return output, labels, self.metric_increments(output, labels, valid), ids
+
+    def validate(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor], Dict[str, Any]]:
+        """(output, labels, host) of a batch: the compiled validation call,
+        then ONE wait for the device that brings ``host``: every metric
+        increment (numpy), 'samples' (the rows the ``valid`` mask keeps),
+        'valid' (that mask or None) and, with INSTANCE_SEG, the decoded
+        'instance_ids', the 'instance_labels' from the present frame on
+        and the 'instance_flow' (or None) for the host's linking."""
+        batch = dict(batch)
+        valid = batch.pop('valid', None)
+        vmask = None if valid is None else np.asarray(valid, bool)
+        # every row valid: nothing to weight out, and the signature of a batch
+        # without a mask (the panels' forwards of train batches replay it too)
+        rows = None if vmask is None or vmask.all() else rows_to_device(vmask, self.device)
+        output, labels, increments, ids = self.graphs['val'](batch, rows)
+        fetch = dict(increments)
+        if ids is not None:
+            fetch['instance_ids'] = ids
+            fetch['instance_labels'] = labels['instance'][:, self.rf - 1:]
+            if output.get('instance_flow') is not None:
+                fetch['instance_flow'] = output['instance_flow']
+        host: Dict[str, Any] = to_host(fetch)
+        host['valid'] = vmask
+        host['samples'] = int(batch['image'].shape[0]) if vmask is None else int(vmask.sum())
+        return output, labels, host
+
+    def add_increments(self, host: Mapping[str, Any]) -> None:
+        """Add ``validate``'s host increments to the validation metrics; the
+        panoptic metric links the decoded ids over time on the host
+        (Hungarian), and takes the valid rows."""
+        self.metric_vehicle_val.add(host['vehicle'])
+        if self.metric_pedestrian_val is not None:
+            self.metric_pedestrian_val.add(host['pedestrian'])
+        for i, metric in enumerate(self.metric_hdmap_val or ()):
+            metric.add(host[f'hdmap_{i}'])
+        if self.metric_planning_val is not None:
+            self.metric_planning_val.add(host['planning'], host['samples'])
+        if self.metric_panoptic_val is not None and host['samples']:
+            consistent = predict_instance_segmentation_and_trajectories(
+                {'instance_flow': host.get('instance_flow')}, decoded=host['instance_ids'])
+            rows = slice(None) if host['valid'] is None else host['valid']
+            self.metric_panoptic_val.update(consistent[rows][:, self.rf - 1:],
+                                            host['instance_labels'][rows])
+
     def val_step(self, batch) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        """``val_forward`` and the metric updates (reference
+        """``validate`` and the metric updates (reference
         trainer.py:199-250). A ``valid`` key (a per-row bool, the loader's
         ``with_valid_mask``) marks the wrap-around padding rows of a ragged
         multi-process validation tail: those rows enter no metric (a batch
         of padding only updates none), so the summed metrics equal a
         one-process run's."""
-        rf = self.rf
-        batch = dict(batch)
-        valid = batch.pop('valid', None)
-        output, labels = self.val_forward(batch)
-        vmask = None if valid is None else np.asarray(valid, bool)
-        if vmask is not None and not vmask.any():
-            return output, labels            # all padding: a rank's share of a ragged tail
-        rows = None
-        if vmask is not None and not vmask.all():
-            rows = torch.as_tensor(np.flatnonzero(vmask), device=self.device)
-
-        def m(a):
-            if rows is None:
-                return a
-            return a[vmask] if isinstance(a, np.ndarray) else a[rows]
-
-        self.metric_vehicle_val.update(m(output['segmentation'].argmax(-1))[:, rf - 1:],
-                                       m(labels['segmentation'])[:, rf - 1:])
-        if self.metric_pedestrian_val is not None:
-            self.metric_pedestrian_val.update(m(output['pedestrian'].argmax(-1))[:, rf - 1:],
-                                              m(labels['pedestrian'])[:, rf - 1:])
-        if self.metric_hdmap_val is not None:
-            hd, hdl = m(output['hdmap']), m(labels['hdmap'])
-            for i, metric in enumerate(self.metric_hdmap_val):
-                metric.update(hd[..., 2 * i:2 * (i + 1)].argmax(-1), hdl[..., i])
-        if self.metric_panoptic_val is not None:
-            consistent = predict_instance_segmentation_and_trajectories(output)
-            self.metric_panoptic_val.update(m(consistent)[:, rf - 1:],
-                                            m(labels['instance'])[:, rf - 1:])
-        if self.metric_planning_val is not None:
-            seg_lab = m(labels['segmentation'])[:, rf:]
-            ped_lab = m(labels['pedestrian'])[:, rf:] if 'pedestrian' in labels else (
-                torch.zeros_like(seg_lab))
-            self.metric_planning_val.update(m(output['final_traj']),
-                                            m(labels['gt_trajectory'])[:, 1:],
-                                            torch.logical_or(seg_lab, ped_lab))
+        output, labels, host = self.validate(batch)
+        self.add_increments(host)
         return output, labels
 
     # ----------------------------------------------------------- metrics

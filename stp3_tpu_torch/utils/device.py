@@ -42,3 +42,23 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     Made outside inference mode, so autograd may save it."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+def to_host(tensors) -> dict:
+    """{name: host numpy array} of a dict of tensors with one wait for the
+    device: every copy from the card is queued (into pinned memory), then
+    the stream is synchronised once."""
+    copies = {k: t.to('cpu', non_blocking=True) if t.is_cuda else t for k, t in tensors.items()}
+    devices = {t.device for t in tensors.values() if t.is_cuda}
+    for device in devices:
+        torch.cuda.current_stream(device).synchronize()
+    return {k: t.detach().numpy() for k, t in copies.items()}
+
+
+def rows_to_device(mask: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host bool array on ``device``; to the card from pinned memory,
+    without waiting for the stream."""
+    t = torch.from_numpy(np.array(mask, dtype=bool))
+    if torch.device(device).type != 'cuda':
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -247,7 +247,7 @@ def make_instance_id_temporally_consistent(pred_inst: np.ndarray, future_flow: n
 
 def predict_instance_segmentation_and_trajectories(
         output: Dict, compute_matched_centers: bool = False, make_consistent: bool = True,
-        vehicles_id: int = 1, jit_decode: bool = True):
+        vehicles_id: int = 1, jit_decode: bool = True, decoded=None):
     """``output``: the model's channels-last heads, tensors or numpy:
     segmentation (B, S, H, W, C) logits (fp32), instance_center (B, S, H,
     W, 1), instance_offset (B, S, H, W, 2), instance_flow (B, S, H, W, 2)
@@ -257,8 +257,13 @@ def predict_instance_segmentation_and_trajectories(
 
     ``jit_decode``: the per-frame NMS and grouping on the tensors' device
     (utils/instance_jit.py), so only the id maps come to the host; False
-    runs the host numpy loop."""
-    if jit_decode:
+    runs the host numpy loop. ``decoded``: the per-frame ids already
+    decoded (``utils/instance_jit.decode_instances``' (B, S, H, W), a
+    tensor or numpy), which are linked without a second decode; ``output``
+    then needs only its instance_flow."""
+    if decoded is not None:
+        pred_inst = as_numpy(decoded).astype(np.int64, copy=False)
+    elif jit_decode:
         seg = as_tensor(output['segmentation'])
         pred_inst = decode_instances(seg, as_tensor(output['instance_center'], seg.device),
                                      as_tensor(output['instance_offset'], seg.device),

@@ -600,3 +600,213 @@ def test_compiled_parameters_new_shapes_and_moved_storage(cuda):
     layer.weight.data = layer.weight.data.clone()
     with pytest.raises(RuntimeError, match='moved'):
         call(x)
+
+
+# ------------------------------------- compiled training calls (CUDA graphs)
+def _train_cfg(precision: int = 32, remat: str = 'encoder'):
+    """The tiny Planning stage (chip_smoke.planning_cfg(tiny=True)); in bf16
+    with the temporal width at 64, K2's."""
+    import chip_smoke
+    cfg = chip_smoke.planning_cfg(tiny=True)
+    cfg.PRECISION = precision
+    cfg.MODEL.REMAT = remat
+    if precision == 16:
+        cfg.MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS = 64
+    return cfg
+
+
+@pytest.fixture(scope='module')
+def tiny_train():
+    """Seeded weights of the tiny fp32 and bf16 Planning stages and two
+    synthetic batches of each on the card; TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (CUDA graphs have no CPU mode)')
+    import chip_smoke
+    from stp3_tpu_torch.layers.base import init_parameters
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.utils.precision import pin_fp32_math
+    pin_fp32_math()
+    out = {}
+    for precision in (32, 16):
+        cfg = _train_cfg(precision)
+        model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
+        out[precision] = ({k: v.clone() for k, v in model.state_dict().items()},
+                          chip_smoke.synthetic_batches(cfg, 2, 'cuda'))
+    return out
+
+
+def _trainer(cfg, weights, seed: int = 3):
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    from stp3_tpu_torch.training.trainer import Trainer
+    model = STP3(STP3Config.from_cfg(cfg))
+    model.load_state_dict(weights)
+    return Trainer(cfg, device='cuda', seed=seed, model=model)
+
+
+def _steps(trainer, batches, n: int, eager: bool):
+    """(loss terms of each of ``n`` steps, the parameters after them)."""
+    losses = []
+    for i in range(n):
+        if eager:
+            out = trainer.compute_gradients(batches[i % 2])
+            trainer.apply_gradients()
+        else:
+            out = trainer.train_step(batches[i % 2])
+        losses.append({k: v.item() for k, v in out.items()})
+    return losses, [p.detach().clone() for p in trainer.model.parameters()]
+
+
+def _distance(got, want, start):
+    """(the loss terms' largest difference relative to the step's total
+    loss, the parameter updates' worst relative L2)."""
+    loss = max(abs(g[k] - w[k]) / max(abs(w['total']), 1e-12)
+               for g, w in zip(got[0], want[0]) for k in w)
+    upd = max(((g - w).norm() / (w - s).norm().clamp_min(1e-30)).item()
+              for g, w, s in zip(got[1], want[1], start))
+    return loss, upd
+
+
+@pytest.mark.parametrize('remat', ['encoder', 'encoder+temporal+decoder+cells', 'future+cells'])
+def test_compiled_train_step_against_eager(tiny_train, remat):
+    """The tiny fp32 step (dropout on, the latent from the generator) through
+    the compiled train step, 3 replays after its warm-up steps and capture,
+    against eager steps of a twin of the same seed: loss terms and parameter
+    updates within 2x the larger distance of two more eager twins from it
+    (or 1e-6), the generators equal (the replays drew what the eager steps
+    drew)."""
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
+    cfg = _train_cfg(32, remat)
+    weights, batches = tiny_train[32]
+    n = WARMUP_CALLS + 1 + 3
+    graphed, twins = _trainer(cfg, weights), [_trainer(cfg, weights) for _ in range(3)]
+    start = [p.detach().clone() for p in graphed.model.parameters()]
+    got = _steps(graphed, batches, n, eager=False)
+    want, *reruns = (_steps(t, batches, n, eager=True) for t in twins)
+    assert graphed.graphs['gradients'].captures == graphed.graphs['update'].captures == 1
+    assert graphed.graphs['gradients'].eager_calls == WARMUP_CALLS
+    d_got = _distance(got, want, start)
+    d_yard = [max(m) for m in zip(*(_distance(r, want, start) for r in reruns))]
+    for g, y in zip(d_got, d_yard):
+        assert g <= max(2 * y, 1e-6), (d_got, d_yard)
+    assert all(torch.equal(graphed.generator.get_state(), t.generator.get_state())
+               for t in twins)
+
+
+def test_compiled_train_step_launches_k1_k3_and_k2_in_its_graph(tiny_train):
+    """In bf16: K1 and K3 once and K2 twice in the gradients' graph, nothing
+    in the update's; a replay moves no launch counter."""
+    from stp3_tpu_torch.ops.kernels import launch_counters
+    cfg = _train_cfg(16)
+    weights, batches = tiny_train[16]
+    trainer = _trainer(cfg, weights)
+    while not trainer.graphs['update'].captures:
+        trainer.train_step(batches[0])
+    want = {name: 0 for name in launch_counters()}
+    assert trainer.graphs['gradients'].launches_per_call == dict(
+        want, bev_splat=1, gather_rows=1, convnext_mlp=2)
+    assert trainer.graphs['update'].launches_per_call == want
+    for fn in launch_counters().values():
+        fn.launches = 0
+    loss = trainer.train_step(batches[1])
+    assert all(fn.launches == 0 for fn in launch_counters().values())
+    assert all(torch.isfinite(v) for v in loss.values())
+
+
+def test_replays_draw_new_masks_as_eager_steps_do(tiny_train):
+    """Two replays on one batch draw new dropout masks and latents (their
+    loss terms differ) and draw what an eager twin of the same seed draws:
+    their loss terms lie within 2x the distance between two eager twins
+    (fp32 atomics), 10x closer than a twin of another seed, and the
+    generators are equal after every step."""
+    cfg = _train_cfg(32)
+    weights, batches = tiny_train[32]
+    graphed = _trainer(cfg, weights)
+    twin, rerun, other = (_trainer(cfg, weights, seed) for seed in (3, 3, 4))
+    eager = (twin, rerun, other)
+    while not graphed.graphs['update'].captures:
+        graphed.train_step(batches[0])
+        for t in eager:
+            t.compute_gradients(batches[0])
+            t.apply_gradients()
+    got, want = [], {t: [] for t in eager}
+    for _ in range(2):
+        got.append(graphed.train_step(batches[1]))
+        for t in eager:
+            want[t].append(t.compute_gradients(batches[1]))
+            t.apply_gradients()
+        assert torch.equal(graphed.generator.get_state(), twin.generator.get_state())
+
+    def dist(a, b):
+        return max(abs(x[k] - y[k]).item() / abs(y['total']).item()
+                   for x, y in zip(a, b) for k in y)
+
+    assert got[0]['total'] != got[1]['total']
+    d, yard = dist(got, want[twin]), dist(want[rerun], want[twin])
+    assert d <= max(2 * yard, 1e-6), (d, yard)
+    assert dist(want[other], want[twin]) > 10 * d
+
+
+def test_replaced_optimizer_state_after_a_capture_raises(tiny_train):
+    import copy
+    cfg = _train_cfg(32)
+    weights, batches = tiny_train[32]
+    trainer = _trainer(cfg, weights)
+    while not trainer.graphs['update'].captures:
+        trainer.train_step(batches[0])
+    trainer.optimizer.load_state_dict(copy.deepcopy(trainer.optimizer.state_dict()))
+    with pytest.raises(RuntimeError, match='replaced'):
+        trainer.train_step(batches[0])
+
+
+def test_a_failed_training_capture_leaves_stream_and_generators_usable(cuda):
+    """A compiled training call that reads back to the host inside a
+    generator's rewind: its eager warm-up calls run, its capture raises, and
+    afterwards the caller's stream is current and the registered generator
+    and the default one draw again."""
+    from stp3_tpu_torch.utils import graphs, rng
+    g = torch.Generator(cuda).manual_seed(0)
+    w = torch.ones(4, device=cuda, requires_grad=True)
+
+    def step(x):
+        snap = rng.snapshot(g)
+        y = (w * x * torch.rand(4, generator=g, device=cuda)).sum()
+        y.backward()
+        with rng.rewound([g], [snap]):
+            again = torch.rand(4, generator=g, device=cuda)
+            scale = again.sum().item()
+        return y.detach() * scale
+
+    call = graphs.compiled_step(step, generators=(g,), device=cuda)
+    x = torch.ones(4, device=cuda)
+    for _ in range(graphs.WARMUP_CALLS):
+        call(x)
+    with pytest.raises(RuntimeError, match='CUDA graph capture of .* failed'):
+        call(x)
+    assert call.captures == 0
+    assert torch.cuda.current_stream(cuda) == torch.cuda.default_stream(cuda)
+    assert torch.rand(3, generator=g, device=cuda).isfinite().all()
+    assert torch.randn(3, device=cuda).isfinite().all()
+
+
+def test_compiled_val_increments_equal_the_eager_ones(tiny_train):
+    """``validate``'s increments (the compiled call, one read back) against
+    the validation function run eagerly: integer counts exactly, the L2
+    sums at rtol 1e-5; a second call replays the graph."""
+    import numpy as np
+    from stp3_tpu_torch.utils.device import to_host
+    cfg = _train_cfg(32)
+    weights, batches = tiny_train[32]
+    trainer = _trainer(cfg, weights)
+    _, _, host = trainer.validate(batches[0])
+    _, _, again = trainer.validate(batches[0])
+    assert trainer.graphs['val'].captures == 1
+    with torch.no_grad():
+        eager = to_host(trainer._validate(batches[0], None)[2])
+    assert host.keys() - {'valid', 'samples'} == eager.keys()
+    for key, want in eager.items():
+        for got in (host[key], again[key]):
+            if key == 'planning':
+                assert (got[:2] == want[:2]).all()
+                np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=0)
+            else:
+                assert (got == want).all(), key
