@@ -1,0 +1,7 @@
+"""Device time a traced agent tick of the stage ``stp3.decoder``: the BEV
+decoder, from the port's stage stamps, in ms."""
+from cardbench.metrics._spans import stage_ms
+
+
+def read(summary, inputs):
+    return stage_ms(summary, 'stp3.decoder')

@@ -1,0 +1,7 @@
+"""Device time a traced serving step of the stage ``stp3.planner``: the
+planner (STP3.plan), from the port's stage stamps, in ms."""
+from cardbench.metrics._spans import stage_ms
+
+
+def read(summary, inputs):
+    return stage_ms(summary, 'stp3.planner')

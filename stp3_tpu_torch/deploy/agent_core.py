@@ -14,6 +14,11 @@ plumbing, so it runs against recorded ticks and real CARLA alike:
     replayed, as the JAX ``AgentCore`` jits them; on the CPU they run
     eagerly;
   * PID steering and speed controllers on the refined waypoints.
+
+The tick's host phases are ``utils/profiling.span``s: ``agent.push_frame``
+(crop and stack), ``agent.egomotion``, ``agent.sample`` (the sampler),
+``agent.h2d`` (the tick's arrays and frames to the device) and
+``agent.pid``; the model's stages run inside the tick's graphs.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from stp3_tpu_torch.deploy.control import PIDController, control_pid
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters, create_frustum
 from stp3_tpu_torch.ops.static_splat import build_column_splat_plan
-from stp3_tpu_torch.utils import graphs
+from stp3_tpu_torch.utils import graphs, profiling
 from stp3_tpu_torch.utils import sampler as trajectory_sampler
 from stp3_tpu_torch.utils.device import resolve_device
 from stp3_tpu_torch.utils.network import prepare_image
@@ -173,10 +178,11 @@ class AgentCore:
         """rgb_by_cam: {'rgb', 'rgb_left', 'rgb_right', 'rgb_rear'} HxWx3
         uint8. Frames stay uint8 on the host (the wire format); the ImageNet
         normalisation runs on the device."""
-        frames = [np.asarray(scale_and_crop_image(rgb_by_cam[key], scale=1.0, crop=self.crop),
-                             np.uint8)
-                  for key in ['rgb', 'rgb_left', 'rgb_right', 'rgb_rear']]
-        self.buffer_rgb.append(np.stack(frames))                   # (4, H, W, 3)
+        with profiling.span('agent.push_frame'):
+            frames = [np.asarray(scale_and_crop_image(rgb_by_cam[key], scale=1.0,
+                                                      crop=self.crop), np.uint8)
+                      for key in ['rgb', 'rgb_left', 'rgb_right', 'rgb_rear']]
+            self.buffer_rgb.append(np.stack(frames))               # (4, H, W, 3)
         self.buffer_gps.append(np.asarray(gps, np.float64))
         self.buffer_theta.append(float(theta))
         self.step_count += 1
@@ -193,29 +199,34 @@ class AgentCore:
     def plan_step(self, speed: float, command_value: int,
                   target_point: np.ndarray) -> Tuple[float, float, bool, Dict]:
         """One model tick -> (steer, throttle, brake, metadata)."""
-        ego = self._egomotion()
-        trajs = trajectory_sampler.sample_trajectories(
-            speed, self.last_steer, self.n_future, self.n_samples).astype(np.float32)
+        with profiling.span('agent.egomotion'):
+            ego = self._egomotion()
+        with profiling.span('agent.sample'):
+            trajs = trajectory_sampler.sample_trajectories(
+                speed, self.last_steer, self.n_future, self.n_samples).astype(np.float32)
         cmd = np.asarray([CARLA_CMD_TO_CODE.get(command_value, CMD_LANE)], np.int32)
         tp = np.asarray(target_point, np.float32)[None]
 
         with torch.inference_mode():
-            args = self._host_args(ego, trajs[None, :, 1:], cmd, tp)
+            with profiling.span('agent.h2d'):
+                args = self._host_args(ego, trajs[None, :, 1:], cmd, tp)
+                frames = (self.buffer_rgb[-1] if self.incremental      # (4, H, W, 3)
+                          else np.stack(list(self.buffer_rgb)))        # (rf, 4, H, W, 3)
+                frames = self._tensor(frames[None])
             if self.incremental:
-                new_img = self._tensor(self.buffer_rgb[-1][None])   # (1, 4, H, W, 3)
                 if self._bev_cache is None:
                     # first planned tick: splat the buffered past frames once
                     self._bev_cache = torch.stack(
                         [self._splat(self._tensor(f[None])) for f in list(self.buffer_rgb)[:-1]],
                         1)
-                traj, _, self._bev_cache = self._serve(new_img, args[0], self._bev_cache,
+                traj, _, self._bev_cache = self._serve(frames, args[0], self._bev_cache,
                                                        *args[1:])
             else:
-                images = self._tensor(np.stack(list(self.buffer_rgb))[None])  # (1, rf, 4, H, W, 3)
-                traj, _ = self._infer(images, *args)
+                traj, _ = self._infer(frames, *args)
             waypoints = traj[0, :, :2].float().cpu().numpy()
-        steer, throttle, brake, metadata = control_pid(
-            waypoints, speed, self.turn_controller, self.speed_controller)
+        with profiling.span('agent.pid'):
+            steer, throttle, brake, metadata = control_pid(
+                waypoints, speed, self.turn_controller, self.speed_controller)
         metadata['command'] = int(command_value)
         self.last_steer = steer
         return steer, throttle, brake, metadata

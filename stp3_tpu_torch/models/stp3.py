@@ -32,6 +32,13 @@ masks and leaving the running statistics alone: 'encoder', 'temporal',
 cell step of future prediction, and 'gates' the future stage
 selectively: its convolution and matmul outputs are kept and the rest
 is recomputed (``_save_conv_dot``).
+
+Each stage is a ``utils/profiling.stage``, traced on the card inside a
+CUDA graph's replay too: ``stp3.encoder``, ``stp3.splat`` (geometry,
+lift and splat; in serving also the cache's warp and discounted
+accumulate), ``stp3.temporal`` (with the egopose concat), ``stp3.future``
+(present distribution and future prediction), ``stp3.decoder`` and
+``stp3.planner``.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
                                          create_frustum, get_geometry)
 from stp3_tpu_torch.ops.static_splat import column_splat, static_splat
 from stp3_tpu_torch.ops.warp import cumulative_warp_features
+from stp3_tpu_torch.utils import profiling
 from stp3_tpu_torch.utils.precision import pin_fp32_math
 
 
@@ -363,7 +371,8 @@ class STP3(nn.Module):
         C) and depth logits (..., N, Hf, Wf, D), None under the uniform
         lift; ``encode`` on the flattened images."""
         lead = image.shape[:-3]
-        feat, depth = self.encode(image.reshape(-1, *image.shape[-3:]), rng)
+        with profiling.stage('stp3.encoder', image):
+            feat, depth = self.encode(image.reshape(-1, *image.shape[-3:]), rng)
         feat = feat.reshape(*lead, *feat.shape[1:])
         if depth is not None:
             depth = depth.reshape(*lead, *depth.shape[1:])
@@ -395,10 +404,11 @@ class STP3(nn.Module):
         lifted tensor (the JAX package takes that branch on a single-device
         TPU only; here whenever the flag is set)."""
         c = self.cfg
-        geometry = self.camera_geometry(intrinsics, extrinsics)
         feat, depth = self.encode_cameras(image, rng)
         cam_front = feat[:, -1, c.cam_front_index] if c.planning_enabled else None
-        x = self.splat_frames(feat, depth, geometry, future_egomotion, c.fused_lift_splat)
+        with profiling.stage('stp3.splat', feat):
+            geometry = self.camera_geometry(intrinsics, extrinsics)
+            x = self.splat_frames(feat, depth, geometry, future_egomotion, c.fused_lift_splat)
         return x, depth, cam_front
 
     def distribution_forward(self, present_state, noise=None):
@@ -473,32 +483,35 @@ class STP3(nn.Module):
         """(decoder outputs, distribution stats) of the BEV features x."""
         c = self.cfg
         rf = c.receptive_field
-        if c.input_egopose:
-            b, s, h, w = x.shape[:4]
-            # no egomotion at time 0: feed zeros, then shift
-            ego_shift = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], 1)
-            ego_spatial = ego_shift[:, :, None, None, :].expand(b, s, h, w, 6)
-            x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
-        if 'temporal' in self.remat_stages:
-            states = remat(self.temporal_model, 'nchw', to_first(x), rng)
-        else:
-            states = self.temporal_model.nchw(to_first(x), rng)     # (B, C, S, H, W)
+        with profiling.stage('stp3.temporal', x):
+            if c.input_egopose:
+                b, s, h, w = x.shape[:4]
+                # no egomotion at time 0: feed zeros, then shift
+                ego_shift = torch.cat([torch.zeros_like(ego[:, :1]), ego[:, :rf - 1]], 1)
+                ego_spatial = ego_shift[:, :, None, None, :].expand(b, s, h, w, 6)
+                x = torch.cat([x, ego_spatial.to(x.dtype)], -1)
+            if 'temporal' in self.remat_stages:
+                states = remat(self.temporal_model, 'nchw', to_first(x), rng)
+            else:
+                states = self.temporal_model.nchw(to_first(x), rng)     # (B, C, S, H, W)
         stats = {}
         if c.n_future > 0:
-            if c.probabilistic:
-                sample, stats = self.distribution_forward(states[:, :, -1:], noise)
-            else:
-                b, _, _, h, w = states.shape
-                sample = states.new_zeros(b, c.latent_dim, 1, h, w)
-            if self.remat_stages & {'future', 'gates'}:
-                policy = _save_conv_dot if 'gates' in self.remat_stages else None
-                states = remat(self.future_prediction, 'nchw', sample, states, rng,
-                               policy=policy)
-            else:
-                states = self.future_prediction.nchw(sample, states, rng)
-        if 'decoder' in self.remat_stages:
-            return remat(self.decoder, 'forward', to_last(states)), stats
-        return self.decoder(to_last(states)), stats
+            with profiling.stage('stp3.future', states):
+                if c.probabilistic:
+                    sample, stats = self.distribution_forward(states[:, :, -1:], noise)
+                else:
+                    b, _, _, h, w = states.shape
+                    sample = states.new_zeros(b, c.latent_dim, 1, h, w)
+                if self.remat_stages & {'future', 'gates'}:
+                    policy = _save_conv_dot if 'gates' in self.remat_stages else None
+                    states = remat(self.future_prediction, 'nchw', sample, states, rng,
+                                   policy=policy)
+                else:
+                    states = self.future_prediction.nchw(sample, states, rng)
+        with profiling.stage('stp3.decoder', states):
+            if 'decoder' in self.remat_stages:
+                return remat(self.decoder, 'forward', to_last(states)), stats
+            return self.decoder(to_last(states)), stats
 
     # ------------------------------------------------------------- serving
     def splat_single_frame(self, image, intrinsics, extrinsics):
@@ -509,7 +522,8 @@ class STP3(nn.Module):
         c = self.cfg
         feat, depth = self.encode_cameras(image)
         cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
-        return self.splat_present(feat, depth, intrinsics, extrinsics), cam_front
+        with profiling.stage('stp3.splat', feat):
+            return self.splat_present(feat, depth, intrinsics, extrinsics), cam_front
 
     def splat_present(self, feat, depth, intrinsics, extrinsics):
         """The present frame's features (B, N, Hf, Wf, C) and depth logits
@@ -547,12 +561,13 @@ class STP3(nn.Module):
         n = image.shape[1]
         feat, depth = self.encode_cameras(image)                     # (B,N,Hf,Wf,C)
         cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
-        ctx, dp = context_depth_rays(c, feat, depth)
-        if isinstance(plan, dict):
-            _, hf, wf = self.frustum.shape[:3]
-            bev = column_splat(ctx, dp, plan, (n, hf, wf, c.depth_channels, c.bev_dimension))
-        else:
-            bev = static_splat(ctx, dp, plan, c.bev_dimension)
+        with profiling.stage('stp3.splat', feat):
+            ctx, dp = context_depth_rays(c, feat, depth)
+            if isinstance(plan, dict):
+                _, hf, wf = self.frustum.shape[:3]
+                bev = column_splat(ctx, dp, plan, (n, hf, wf, c.depth_channels, c.bev_dimension))
+            else:
+                bev = static_splat(ctx, dp, plan, c.bev_dimension)
         return bev, cam_front
 
     def serve_step_static(self, image, future_egomotion, cached_bev, trajs, commands,
@@ -571,11 +586,12 @@ class STP3(nn.Module):
         refined trajectory is None."""
         c = self.cfg
         rf = c.receptive_field
-        frames = torch.cat([cached_bev.to(bev_new.dtype), bev_new[:, None]], 1)
         ego = future_egomotion[:, :rf]
-        aligned = cumulative_warp_features(frames, ego.float(), mode='bilinear',
-                                           spatial_extent=c.spatial_extent)
-        x = discounted_accumulate(aligned, c.discount)              # (B, rf, nx, ny, C)
+        with profiling.stage('stp3.splat', bev_new):
+            frames = torch.cat([cached_bev.to(bev_new.dtype), bev_new[:, None]], 1)
+            aligned = cumulative_warp_features(frames, ego.float(), mode='bilinear',
+                                               spatial_extent=c.spatial_extent)
+            x = discounted_accumulate(aligned, c.discount)          # (B, rf, nx, ny, C)
         output, _ = self._predict(x, ego)
         output['cam_front'] = cam_front
         if not c.planning_enabled:
@@ -592,5 +608,6 @@ class STP3(nn.Module):
     def plan(self, cam_front, trajs, gt_trajs, cost_volume, semantic_pred, hd_map,
              commands, target_points, train: bool = False):
         """The planner: (loss, 0 unless ``train``; refined trajectory (B, T, 3))."""
-        return self.planner(cam_front, trajs, gt_trajs, cost_volume, semantic_pred,
-                            hd_map, commands, target_points, train)
+        with profiling.stage('stp3.planner', cam_front):
+            return self.planner(cam_front, trajs, gt_trajs, cost_volume, semantic_pred,
+                                hd_map, commands, target_points, train)

@@ -42,7 +42,10 @@ Around the steps, as the JAX CLI (train.py:52-229):
     needs moviepy and writes no frames without it);
   * ``PROFILE.ENABLED``: a ``torch.profiler`` trace on rank 0 of steps 2
     .. 1 + PROFILE.STEPS into PROFILE.DIR or ``<run dir>/profile``; each
-    train step is a ``train_step_<n>`` range in it;
+    train step is a ``train_step_<n>`` range in it. At the window's end
+    the log gives each stage's time a step (``utils/profiling``: on the
+    card the device time of ``train.forward``, ``train.backward``,
+    ``train.update`` and the model's ``stp3.*`` stages, replays included);
   * ``DEBUG.NAN_CHECK``: ``Trainer.train_step`` raises
     ``FloatingPointError`` at the first NaN loss term or gradient, before
     the update.
@@ -249,6 +252,13 @@ def run(cfg, device=None, save_dir: Optional[str] = None,
                 if profile_dir is not None and trainer.step == 1 + cfg.PROFILE.STEPS:
                     profiler.close()
                     log(f'profiler trace written to {profile_dir}')
+                    try:        # a window too long for the stamp ring must not stop the run
+                        spans = profiling.window_spans()
+                    except RuntimeError as exc:
+                        spans = []
+                        log(f'profiled stages unavailable: {exc}')
+                    for name, ms in profiling.mean_ms(spans, cfg.PROFILE.STEPS).items():
+                        log(f'profiled stage {name}: {ms:.3f} ms a step ({spans[0].device})')
                 if trainer.step % log_every == 0 or trainer.step <= 3:
                     log(f'epoch {epoch} step {trainer.step} loss {loss["total"].item():.4f} '
                         f'({train_timer.last_ms():.0f} ms)')

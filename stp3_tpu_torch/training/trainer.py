@@ -39,7 +39,10 @@ again. The trainer's generator is registered with the graphs, so every
 replay draws new masks and latents and leaves the generator where the
 eager step would. A process group whose collectives cannot be captured
 (gloo) trains eagerly: ``compiled`` says which path ``train_step`` takes.
-On the CPU the same calls run eagerly.
+On the CPU the same calls run eagerly. The step's stages
+(``utils/profiling.stage``, traced inside the graphs' replays too):
+``train.forward`` (labels, forward, losses; the planner's loss is its
+``stp3.planner``), ``train.backward`` and ``train.update`` (clip + Adam).
 
 The optimizer is ``torch.nn.utils.clip_grad_norm_`` followed by
 ``torch.optim.Adam(weight_decay=...)``: the decay is added to the
@@ -80,7 +83,7 @@ from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric, io
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.ops.warp import cumulative_warp_features, cumulative_warp_features_reverse
 from stp3_tpu_torch.parallel import mesh
-from stp3_tpu_torch.utils import graphs
+from stp3_tpu_torch.utils import graphs, profiling
 from stp3_tpu_torch.utils.device import resolve_device, rows_to_device, to_host
 from stp3_tpu_torch.utils.instance import predict_instance_segmentation_and_trajectories
 from stp3_tpu_torch.utils.instance_jit import decode_instances
@@ -236,15 +239,16 @@ class Trainer:
             occ_ped = labels.get('pedestrian', torch.zeros_like(labels['segmentation']))
             occupancy = torch.logical_or(labels['segmentation'][:, rf:],
                                          occ_ped[:, rf:]).float()
-            pl_loss, _ = functional_call(model.planner, _planner_params(params_c), (
-                output['cam_front'].detach().to(self.compute_dtype),
-                batch['sample_trajectory'][:, :, 1:],
-                labels['gt_trajectory'][:, 1:],
-                output['costvolume'][:, rf:],
-                occupancy,
-                labels['hdmap'].float(),
-                batch['command'],
-                batch['target_point']), {'train': True})
+            with profiling.stage('stp3.planner', occupancy):
+                pl_loss, _ = functional_call(model.planner, _planner_params(params_c), (
+                    output['cam_front'].detach().to(self.compute_dtype),
+                    batch['sample_trajectory'][:, :, 1:],
+                    labels['gt_trajectory'][:, 1:],
+                    output['costvolume'][:, rf:],
+                    occupancy,
+                    labels['hdmap'].float(),
+                    batch['command'],
+                    batch['target_point']), {'train': True})
             weighted('planning', 'planning', pl_loss.to(self.loss_dtype))
         return loss
 
@@ -316,8 +320,10 @@ class Trainer:
         their addresses; a parameter without a gradient keeps none), the
         loss and backward; the detached loss terms with 'total'."""
         self.optimizer.zero_grad(set_to_none=False)
-        total, loss = self.loss_fn(batch, noise, dropout)
-        total.backward()
+        with profiling.stage('train.forward', self.device):
+            total, loss = self.loss_fn(batch, noise, dropout)
+        with profiling.stage('train.backward', self.device):
+            total.backward()
         out = {k: v.detach() for k, v in loss.items()}
         out['total'] = total.detach()
         return out
@@ -332,8 +338,10 @@ class Trainer:
 
     def _update(self) -> None:
         """The update's call: clip the (global) gradient norm, then Adam."""
-        torch.nn.utils.clip_grad_norm_(self.model.parameters(), float(self.cfg.GRAD_NORM_CLIP))
-        self.optimizer.step()
+        with profiling.stage('train.update', self.device):
+            torch.nn.utils.clip_grad_norm_(self.model.parameters(),
+                                           float(self.cfg.GRAD_NORM_CLIP))
+            self.optimizer.step()
 
     def broadcast_state(self) -> None:
         """Rank 0's parameters and buffers on every rank (at start, after

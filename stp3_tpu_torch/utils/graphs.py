@@ -28,6 +28,10 @@ eagerly on the card instead.
 The kernels' launch counters (``ops/kernels.launch_counters``) count
 host calls, so a replay does not move them: ``launches_per_call`` holds
 the launches each kernel made while the last call's graph was captured.
+A capture records the stamps of ``utils/profiling.stage`` inside ``fn``,
+and a replay tells ``profiling`` which ring positions they take; while a
+profiler runs each replay (copy-in, launch, output clones) is a
+``graph.replay`` host range.
 
 ``compiled_step(fn, *modules, optimizer=, generators=, device=)`` is the
 training counterpart (the JAX trainer's jitted step): ``fn`` runs with
@@ -61,7 +65,7 @@ import torch
 import torch.nn as nn
 
 from stp3_tpu_torch.ops.kernels import launch_counters
-from stp3_tpu_torch.utils import rng
+from stp3_tpu_torch.utils import profiling, rng
 
 # eager calls before a capture (torch.cuda.graph's recipe)
 WARMUP_CALLS = 3
@@ -183,6 +187,8 @@ class _Graph:
     outputs: list
     out_spec: Any
     launches: Dict[str, int]
+    device: int                       # the index of the card it runs on
+    stamps: Tuple[int, ...]           # the ids of the stage stamps it holds, in order
 
 
 class Compiled:
@@ -224,12 +230,14 @@ class Compiled:
         graph = self._graphs.get(key)
         if graph is None:
             graph = self._graphs[key] = self._capture(spec, leaves)
-        for buf, x in zip(graph.inputs, leaves):
-            if buf is not None:
-                buf.copy_(x)
-        graph.graph.replay()
-        self.launches_per_call = dict(graph.launches)
-        return _fresh(graph.out_spec, graph.outputs)
+        with profiling.span('graph.replay'):
+            for buf, x in zip(graph.inputs, leaves):
+                if buf is not None:
+                    buf.copy_(x)
+            graph.graph.replay()
+            profiling.replayed(graph.device, graph.stamps)
+            self.launches_per_call = dict(graph.launches)
+            return _fresh(graph.out_spec, graph.outputs)
 
     def _held_tensors(self):
         """(name, getter, what moved it) of each tensor that the graphs read
@@ -273,16 +281,16 @@ class Compiled:
         graph = torch.cuda.CUDAGraph()
         before = _read_launches()
         try:
-            with _no_collection(), torch.no_grad(), torch.cuda.graph(
-                    graph, pool=self.pool.handle()):
+            with profiling.capturing(device) as stamps, _no_collection(), torch.no_grad(), \
+                    torch.cuda.graph(graph, pool=self.pool.handle()):
                 reserved = torch.cuda.memory_reserved(device)
                 out = self.fn(*args, **kwargs)
         except RuntimeError as err:
             _recover_from_failed_capture(caller, device)
             raise _capture_error(self.name, err) from err
-        return self._captured(graph, static, out, before, reserved, t0, device)
+        return self._captured(graph, static, out, before, reserved, t0, device, stamps)
 
-    def _captured(self, graph, static, out, before, reserved, t0, device) -> _Graph:
+    def _captured(self, graph, static, out, before, reserved, t0, device, stamps) -> _Graph:
         """The record of a capture that ended well: its launches, outputs,
         inputs, its share of the pool and its time."""
         launches = {k: v - before[k] for k, v in _read_launches().items()}
@@ -291,7 +299,7 @@ class Compiled:
         self.pool_bytes += torch.cuda.memory_reserved(device) - reserved
         self.capture_seconds = time.perf_counter() - t0
         return _Graph(graph, [x if isinstance(x, torch.Tensor) else None for x in static],
-                      outputs, out_spec, launches)
+                      outputs, out_spec, launches, device.index, tuple(stamps))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -352,13 +360,15 @@ class CompiledStep(Compiled):
             return self._eager(key, args, kwargs)
         if graph is None:
             graph = self._graphs[key] = self._capture_step(spec, leaves, key)
-        for buf, x in zip(graph.inputs, leaves):
-            if buf is not None:
-                buf.copy_(x)
-        self._rewinds[key].position()
-        graph.graph.replay()
-        self.launches_per_call = dict(graph.launches)
-        return _fresh(graph.out_spec, graph.outputs)
+        with profiling.span('graph.replay'):
+            for buf, x in zip(graph.inputs, leaves):
+                if buf is not None:
+                    buf.copy_(x)
+            self._rewinds[key].position()
+            graph.graph.replay()
+            profiling.replayed(graph.device, graph.stamps)
+            self.launches_per_call = dict(graph.launches)
+            return _fresh(graph.out_spec, graph.outputs)
 
     def _eager(self, key, args, kwargs):
         """A warm-up call: the real call, eagerly, on a side stream."""
@@ -390,15 +400,15 @@ class CompiledStep(Compiled):
         before = _read_launches()
         try:
             rewinds.register(graph)
-            with _no_collection(), rewinds.capturing(), torch.cuda.graph(
-                    graph, pool=self.pool.handle()):
+            with profiling.capturing(device) as stamps, _no_collection(), rewinds.capturing(), \
+                    torch.cuda.graph(graph, pool=self.pool.handle()):
                 reserved = torch.cuda.memory_reserved(device)
                 out = self.fn(*args, **kwargs)
         except RuntimeError as err:
             _recover_from_failed_capture(caller, device, own)
             raise _capture_error(self.name, err) from err
         self._rewinds[key] = rewinds
-        return self._captured(graph, static, out, before, reserved, t0, device)
+        return self._captured(graph, static, out, before, reserved, t0, device, stamps)
 
 
 def _tensor_or_none(x) -> Optional[torch.Tensor]:

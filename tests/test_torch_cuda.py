@@ -810,3 +810,137 @@ def test_compiled_val_increments_equal_the_eager_ones(tiny_train):
                 np.testing.assert_allclose(got[2], want[2], rtol=1e-5, atol=0)
             else:
                 assert (got == want).all(), key
+
+
+# ---------------------------------------- stage stamps (utils/profiling.stage)
+def _two_stage_call(cuda):
+    """A compiled call of two stages, captured (its first call) and
+    replayed once, untraced."""
+    from stp3_tpu_torch.utils import graphs, profiling
+
+    def fn(x):
+        with profiling.stage('test.first', x):
+            y = torch.sin(x) * 2.0
+        with profiling.stage('test.second', y):
+            z = torch.cos(y).cumsum(0)
+        return z
+
+    call = graphs.compiled(fn)
+    x = torch.randn(1 << 22, device=cuda)
+    call(x)
+    assert call.captures == 1
+    return call, x
+
+
+def _profiled(fn):
+    """The ``torch.profiler`` (CPU and CUDA) of ``fn`` and a sync."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def test_stages_survive_replay_and_untraced_replays_record_nothing(cuda):
+    """N replays under a profiler: N x 2 spans on the device, in order,
+    each of positive length, and N ``graph.replay`` host ranges; N replays
+    without one: the stamps run (the ring's count moves) and no span is
+    recorded."""
+    from stp3_tpu_torch.utils import profiling
+    call, x = _two_stage_call(cuda)
+    n = 7
+    ring = profiling._RECORDER.rings[cuda.index]
+    before, issued = profiling.window_spans(), ring.issued
+    for _ in range(n):
+        call(x)
+    assert profiling.window_spans() == before
+    assert ring.issued == issued + 4 * n and int(ring.words[0]) == ring.issued
+    prof = _profiled(lambda: [call(x) for _ in range(n)])
+    spans = profiling.window_spans()
+    assert [s.name for s in spans] == ['test.first', 'test.second'] * n
+    assert all(s.device == f'cuda:{cuda.index}' and s.end_ns > s.start_ns for s in spans)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(spans, spans[1:]))
+    cpu = torch.autograd.DeviceType.CPU
+    assert sum(e.name == 'graph.replay' and e.device_type == cpu for e in prof.events()) == n
+
+
+def test_replays_make_no_synchronising_call_traced_or_not(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    from stp3_tpu_torch.utils import profiling
+    call, x = _two_stage_call(cuda)
+    torch.cuda.synchronize()
+
+    def replays():
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            for _ in range(3):
+                call(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    replays()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        replays()
+        torch.cuda.synchronize()
+    assert len(profiling.window_spans()) == 6
+
+
+def test_the_compiled_train_step_with_two_steps_in_flight_loses_no_span(tiny_train):
+    """The tiny fp32 train step, replayed 6 times under a profiler with at
+    most two steps in flight (the benchmark's throughput window): each step
+    gives its forward, backward and update, the model's six stages inside
+    its forward."""
+    from stp3_tpu_torch.utils import profiling
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
+    cfg = _train_cfg(32)
+    weights, batches = tiny_train[32]
+    trainer = _trainer(cfg, weights)
+    for i in range(WARMUP_CALLS + 1):
+        trainer.train_step(batches[i % 2])
+    assert trainer.graphs['gradients'].captures == trainer.graphs['update'].captures == 1
+    n, events = 6, []
+
+    def steps():
+        for i in range(n):
+            if len(events) >= 2:
+                events.pop(0).synchronize()
+            trainer.train_step(batches[i % 2])
+            events.append(torch.cuda.Event())
+            events[-1].record()
+
+    _profiled(steps)
+    spans = profiling.window_spans()
+    stages = ('stp3.encoder', 'stp3.splat', 'stp3.temporal', 'stp3.future', 'stp3.decoder',
+              'stp3.planner')
+    counts = {}
+    for s in spans:
+        counts[s.name] = counts.get(s.name, 0) + 1
+    assert counts == {**{k: n for k in stages}, 'train.forward': n, 'train.backward': n,
+                      'train.update': n}
+    outer = [s for s in spans if s.name.startswith('train.')]
+    assert [s.name for s in outer] == ['train.forward', 'train.backward', 'train.update'] * n
+    assert all(a.end_ns <= b.start_ns for a, b in zip(outer, outer[1:]))
+    forwards = [s for s in outer if s.name == 'train.forward']
+    for s in spans:
+        if s.name in stages:
+            assert any(f.start_ns <= s.start_ns and s.end_ns <= f.end_ns for f in forwards)
+
+
+def test_the_stamp_kernels_in_the_trace_match_the_ring_on_one_clock(cuda):
+    """Each stamp kernel the profiler saw is one ring entry, and the
+    intervals between consecutive stamps agree within 2 us: the device
+    spans and the device trace share one clock."""
+    import numpy as np
+    from stp3_tpu_torch.utils import profiling
+    call, x = _two_stage_call(cuda)
+    n = 10
+    prof = _profiled(lambda: [call(x) for _ in range(n)])
+    spans = profiling.window_spans()
+    ring_ns = sorted(t for s in spans for t in (s.start_ns, s.end_ns))
+    kernels = sorted(e.time_range.start for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and 'stage_stamp' in e.name)
+    assert len(kernels) == len(ring_ns) == 4 * n
+    gaps = np.abs(np.diff(ring_ns) / 1e3 - np.diff(kernels))
+    assert gaps.max() <= 2.0, gaps

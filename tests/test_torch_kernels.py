@@ -435,7 +435,8 @@ def test_port_imports_no_jax_or_flax():
     data of tests/torch_fake_datasets.py, the data-parallel and
     camera-parallel modules and their test ranks
     (tests/torch_dist_worker.py), the visualisation, profiling and Kalman
-    utilities and the dress rehearsal, pull in nothing of jax, flax,
+    utilities, the stage stamp and the benchmark's span readers and the
+    dress rehearsal, pull in nothing of jax, flax,
     optax, orbax, stp3_tpu, PIL or cv2 (the card's machine has neither PIL
     nor cv2), nor PyYAML at import time (nor has it PyYAML: only
     ``CfgNode.merge_from_file`` imports it)."""
@@ -463,6 +464,7 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch.parallel.launch, torch_dist_worker\n'
         'import stp3_tpu_torch.utils.visualisation, stp3_tpu_torch.utils.profiling\n'
         'import stp3_tpu_torch.utils.kalman, stp3_tpu_torch.scripts.dress_rehearsal\n'
+        'import stp3_tpu_torch.ops.kernels.stage_stamp, cardbench.metrics._spans\n'
         'new = set(sys.modules) - before\n'
         f'print(json.dumps(sorted(m for m in new if m.split(".")[0] in {_FOREIGN + ("yaml",)!r})))\n')
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
