@@ -1,6 +1,9 @@
 """Candidate trajectory sampler — host-side numpy (data-prep, like the
 reference; stp3/utils/sampler.py:8-146). The port's own copy of
-stp3_tpu/utils/sampler.py: the same draws in the same order.
+stp3_tpu/utils/sampler.py: the same draws in the same order, and the same
+arrays bit for bit. ``sample_trajectories`` evaluates only the times it
+returns (every value depends on its own time alone), where the reference
+evaluates a 10x finer grid and then keeps every tenth time.
 
 Given the ego's current speed ``v0`` and steering curvature ``kappa``,
 samples ``m`` candidate trajectories over timestamps ``tt`` as a mix of
@@ -108,8 +111,14 @@ def sample_trajectories(v0: float, steering: float, n_future: int, n_samples: in
                         sample_interval: float = 0.5, flip_steering: bool = False,
                         rng: Optional[np.random.RandomState] = None) -> np.ndarray:
     """Convenience wrapper matching the dataset-side invocation
-    (reference NuscenesData.py:389-437): fine 10x time sampling then
-    decimation; kappa = 2*steering/2.588; (n_samples, n_future+1, 3)."""
+    (reference NuscenesData.py:389-437); kappa = 2*steering/2.588;
+    (n_samples, n_future+1, 3).
+
+    The reference samples on a grid 10x finer than ``sample_interval`` and
+    keeps every tenth time. Here the same grid is built and only its kept
+    times are evaluated; its last time, which the candidates are sorted on,
+    is evaluated too when it is not a kept one and dropped afterwards. The
+    draws are the same, so are the arrays."""
     if flip_steering:
         steering = -steering
     kappa = 2.0 * steering / 2.588
@@ -118,5 +127,7 @@ def sample_trajectories(v0: float, steering: float, n_future: int, n_samples: in
     t_end = n_future * sample_interval
     t_interval = sample_interval / 10.0
     tt = np.arange(0.0, t_end + t_interval, t_interval)
-    fine = sample(v0, kappa, t0, n0, tt, n_samples, rng=rng)
-    return fine[:, ::10]
+    kept = tt[::10]
+    if (len(tt) - 1) % 10 == 0:
+        return sample(v0, kappa, t0, n0, kept, n_samples, rng=rng)
+    return sample(v0, kappa, t0, n0, np.append(kept, tt[-1]), n_samples, rng=rng)[:, :-1]

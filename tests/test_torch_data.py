@@ -105,11 +105,41 @@ def test_synthetic_batch_is_byte_equal():
     assert len(tsyn.SyntheticDataset(cfg, 8, 0)) == 8
 
 
-@pytest.mark.parametrize('steering', [-0.05, 0.0, 0.07])
-def test_sampler_matches(steering):
-    got = tsampler.sample_trajectories(5.0, steering, 6, 60, rng=np.random.RandomState(1))
-    want = jsampler.sample_trajectories(5.0, steering, 6, 60, rng=np.random.RandomState(1))
+# (n_future, n_samples, sample_interval): the CARLA and nuScenes candidate
+# sets, an empty horizon, a small set, and two intervals whose 10x finer
+# grid (62 and 32 points) does not end on a kept time
+SAMPLER_SIZES = [(4, 2400, 0.5), (6, 1800, 0.5), (0, 12, 0.5), (8, 60, 0.5),
+                 (6, 60, 0.1), (3, 60, 0.05)]
+# -0.003 falls inside the circles' curvature clamp of 0.01
+SAMPLER_STEERINGS = [-0.5, -0.05, -0.003, 0.0, 0.07, 0.2]
+SAMPLER_CASES = pytest.mark.parametrize(
+    'size,steering,v0,flip',
+    [(size, steering, v0, flip) for size in SAMPLER_SIZES for steering in SAMPLER_STEERINGS
+     for v0 in (0.0, 12.0) for flip in (False, True)])
+
+
+@SAMPLER_CASES
+def test_sampler_matches(size, steering, v0, flip):
+    """The port evaluates only the kept times; stp3_tpu evaluates the fine
+    grid and decimates. The arrays and the draws consumed are the same."""
+    n_future, n_samples, interval = size
+    seed = 2**31 + 977 * n_samples + n_future
+    rng_t, rng_j = np.random.RandomState(seed), np.random.RandomState(seed)
+    got = tsampler.sample_trajectories(v0, steering, n_future, n_samples, interval,
+                                       flip_steering=flip, rng=rng_t)
+    want = jsampler.sample_trajectories(v0, steering, n_future, n_samples, interval,
+                                        flip_steering=flip, rng=rng_j)
     np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(rng_t.rand(8), rng_j.rand(8))
+
+
+@SAMPLER_CASES
+def test_sampler_shape_and_dtype(size, steering, v0, flip):
+    n_future, n_samples, interval = size
+    got = tsampler.sample_trajectories(v0, steering, n_future, n_samples, interval,
+                                       flip_steering=flip, rng=np.random.RandomState(5))
+    assert got.shape == (n_samples, n_future + 1, 3)
+    assert got.dtype == np.float64
 
 
 def test_instance_labels_match():
