@@ -32,14 +32,27 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """``jax.image.resize(..., 'bilinear')`` for an UPSAMPLE of an NCHW map:
     half-pixel centres, i.e. ``align_corners=False``. A downscale would be
-    antialiased in JAX and is refused."""
+    antialiased in JAX and is refused.
+
+    From a 1x1 map every output pixel takes the one source pixel at weight
+    1, so the upsample is the input's broadcast, returned as an ``expand``
+    view: its backward is one fp32-accumulated sum over each plane, where
+    ``F.interpolate``'s CUDA backward would make four atomic adds per
+    output element, all onto the plane's one input element.
+    ``resize_bilinear.broadcasts`` counts the calls that take this route."""
     h, w = hw
     if h < x.shape[-2] or w < x.shape[-1]:
         raise ValueError(f'resize {tuple(x.shape[-2:])} -> {hw} is a downscale; '
                          'only upsampling matches jax.image.resize')
     if (h, w) == tuple(x.shape[-2:]):
         return x
+    if x.shape[-2:] == (1, 1):
+        resize_bilinear.broadcasts += 1
+        return x.expand(*x.shape[:-2], h, w)
     return F.interpolate(x, size=(h, w), mode='bilinear', align_corners=False)
+
+
+resize_bilinear.broadcasts = 0
 
 
 def upsample_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

@@ -712,6 +712,87 @@ def test_compiled_train_step_launches_k1_k3_and_k2_in_its_graph(tiny_train):
     assert all(torch.isfinite(v) for v in loss.values())
 
 
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16's numbers at |v| (v in fp64, nonzero)."""
+    return torch.ldexp(torch.full_like(v, torch.finfo(torch.bfloat16).eps),
+                       torch.frexp(v.abs())[1] - 1)
+
+
+def _interpolate(x, hw):
+    return torch.nn.functional.interpolate(x, size=hw, mode='bilinear', align_corners=False)
+
+
+def test_resize_bilinear_from_1x1_is_the_broadcast_on_the_card(cuda, monkeypatch):
+    """bf16 (12, 23, 1, 1) -> (200, 200), the Planning pyramid's shape (2 x 6
+    frames): the broadcast equals ``F.interpolate`` bit for bit and its
+    gradient lies within one bf16 rounding of the fp64 plane sum (the
+    interpolation's backward adds 160,000 bf16 atomics into each element,
+    four a pixel).
+    A bf16 TemporalBlock at the pyramid's 200x200 keeps the interpolation's
+    strides: the pyramid's output (bit for bit), the aggregation's input
+    and the block's output."""
+    from stp3_tpu_torch.layers import base, temporal
+    from stp3_tpu_torch.layers.convolutions import resize_bilinear
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn(12, 23, 1, 1, generator=gen) * 10).to(cuda, torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn(12, 23, 200, 200, generator=gen).to(cuda, torch.bfloat16)
+    n = resize_bilinear.broadcasts
+    y = resize_bilinear(x, (200, 200))
+    assert resize_bilinear.broadcasts == n + 1
+    assert torch.equal(y, _interpolate(x, (200, 200)))
+    got, = torch.autograd.grad(y, x, g)
+    plane_sum = g.double().sum((-2, -1), keepdim=True)
+    assert ((got.double() - plane_sum).abs() <= _bf16_ulp(plane_sum)).all()
+
+    torch.manual_seed(0)
+    block = temporal.TemporalBlock(64, 64, True, [(2, 200, 200)]).to(cuda, torch.bfloat16)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    xs = base.to_first(torch.randn(2, 3, 200, 200, 64, device=cuda).to(torch.bfloat16))
+    agg = block.Conv1x1x1NormActivated_3
+    seen = []
+    monkeypatch.setattr(agg, 'nchw', lambda v, f=agg.nchw: seen.append(v) or f(v))
+
+    def outputs():
+        with torch.no_grad():
+            return block.PyramidSpatioTemporalPooling_0.nchw(xs), block.nchw(xs), seen.pop()
+    got = outputs()
+    with monkeypatch.context() as m:
+        m.setattr(temporal, 'resize_bilinear', _interpolate)
+        want = outputs()
+    assert [v.stride() for v in got] == [v.stride() for v in want]
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=2e-2)
+
+
+def test_compiled_train_step_captures_and_replays_the_broadcast(tiny_train):
+    """The tiny bf16 Planning step: every warm-up call and the capture take
+    the broadcast route once per pyramid; a replay moves no counter and
+    steps to finite losses."""
+    from stp3_tpu_torch.layers import temporal
+    from stp3_tpu_torch.layers.convolutions import resize_bilinear
+    cfg = _train_cfg(16)
+    weights, batches = tiny_train[16]
+    trainer = _trainer(cfg, weights)
+    pyramids = sum(isinstance(m, temporal.TemporalBlock) and m.use_pyramid_pooling
+                   for m in trainer.model.modules())
+    assert pyramids
+    n = resize_bilinear.broadcasts
+    while not trainer.graphs['update'].captures:
+        trainer.train_step(batches[0])
+    graph = trainer.graphs['gradients']
+    assert graph.captures == 1
+    assert resize_bilinear.broadcasts == n + pyramids * (graph.eager_calls + 1)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    n = resize_bilinear.broadcasts
+    losses = [trainer.train_step(batches[i % 2]) for i in range(2)]
+    assert resize_bilinear.broadcasts == n and graph.captures == 1
+    assert all(torch.isfinite(v).all() for loss in losses for v in loss.values())
+    assert any(not torch.equal(p, q) for p, q in zip(trainer.model.parameters(), before))
+
+
 def test_replays_draw_new_masks_as_eager_steps_do(tiny_train):
     """Two replays on one batch draw new dropout masks and latents (their
     loss terms differ) and draw what an eager twin of the same seed draws:

@@ -209,6 +209,127 @@ def test_temporal_block_with_pyramid_pooling():
     close(got, want)
 
 
+def _interpolate(x, hw):
+    """``F.interpolate``'s half-pixel bilinear upsample, the route of every
+    map but a 1x1 one."""
+    return torch.nn.functional.interpolate(x, size=hw, mode='bilinear', align_corners=False)
+
+
+def _ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The spacing of ``dtype``'s numbers at |v| (v in fp64, nonzero)."""
+    return torch.ldexp(torch.full_like(v, torch.finfo(dtype).eps), torch.frexp(v.abs())[1] - 1)
+
+
+@pytest.mark.parametrize('channels_last', [False, True])
+@pytest.mark.parametrize('src,hw', [((1, 1, 1, 1), (200, 200)), ((1, 1, 1, 1), (7, 5)),
+                                    ((1, 1, 1, 1), (1, 9)), ((6, 23, 1, 1), (200, 200)),
+                                    ((6, 23, 1, 1), (7, 5)), ((6, 23, 1, 1), (1, 9)),
+                                    ((3, 4, 5, 6), (10, 12)), ((3, 4, 5, 6), (7, 9))])
+def test_resize_bilinear_from_1x1_is_the_broadcast(src, hw, channels_last):
+    """From 1x1, in bf16, fp32 and fp64: the broadcast (bf16: the
+    interpolation in fp32 rounded once, bit for bit; fp32 within 4 ulp of
+    the interpolation), the fp64 gradient the plane sum, the bf16 gradient
+    within one bf16 rounding of the fp64 plane sum of the same gradients,
+    and ``broadcasts`` raised once a call. A 2x and a non-integer upsample
+    still equal ``F.interpolate`` bit for bit, gradients too, and move no
+    counter. (CPU's bf16 interpolation of a single plane is off by a bf16
+    ulp at some pixels: the card's kernel, which accumulates in fp32, is
+    compared bit for bit in tests/test_torch_cuda.py.)"""
+    gen = torch.Generator().manual_seed(hw[0] * 1000 + hw[1] + src[1])
+    base = torch.randn(*src, generator=gen, dtype=torch.float64) * 10
+    grad = torch.randn(*src[:2], *hw, generator=gen, dtype=torch.float64)
+    broadcast = src[-2:] == (1, 1)
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        x = base.to(dtype)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x.requires_grad_(True)
+        g = grad.to(dtype)
+        n = TC.resize_bilinear.broadcasts
+        y = TC.resize_bilinear(x, hw)
+        assert TC.resize_bilinear.broadcasts == n + broadcast
+        got, = torch.autograd.grad(y, x, g)
+        if not broadcast:
+            want = _interpolate(x, hw)
+            assert torch.equal(y, want)
+            assert torch.equal(got, torch.autograd.grad(want, x, g)[0])
+            continue
+        want = _interpolate(x.detach().float(), hw).double()
+        if dtype == torch.bfloat16:
+            assert torch.equal(y, want.to(dtype))
+        else:
+            assert ((y.double() - want).abs() <= 4 * _ulp(want, torch.float32)).all()
+        plane_sum = g.double().sum((-2, -1), keepdim=True)
+        if dtype == torch.float64:
+            assert torch.equal(got, plane_sum)
+        elif dtype == torch.bfloat16:
+            assert ((got.double() - plane_sum).abs() <= _ulp(plane_sum, dtype)).all()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('layout', ['channels_last', 'contiguous'])
+def test_pyramid_outputs_keep_the_interpolations_strides(monkeypatch, dtype, layout):
+    """PyramidSpatioTemporalPooling's output, TemporalBlock's concat (the
+    aggregation's input) and its output have the strides and the values
+    (bf16: bit for bit) that ``F.interpolate`` gave them, on the model's
+    channels-last views and on contiguous NCTHW input."""
+    b, t, h, w, c = 2, 3, 12, 10, 24
+    torch.manual_seed(0)
+    block = TT.TemporalBlock(c, 16, True, [(2, h, w)]).to(dtype)
+    for p in block.parameters():
+        torch.nn.init.normal_(p, std=0.2)
+    x = torch.randn(b, t, h, w, c).to(dtype)
+    x = TB.to_first(x) if layout == 'channels_last' else TB.to_first(x).contiguous()
+    agg = block.Conv1x1x1NormActivated_3
+    seen = []
+    monkeypatch.setattr(agg, 'nchw', lambda v, f=agg.nchw: seen.append(v) or f(v))
+
+    def outputs():
+        with torch.no_grad():
+            return block.PyramidSpatioTemporalPooling_0.nchw(x), block.nchw(x)
+    got = outputs() + (seen.pop(),)
+    with monkeypatch.context() as m:
+        m.setattr(TT, 'resize_bilinear', _interpolate)
+        want = outputs() + (seen.pop(),)
+    for g, v in zip(got, want):
+        assert g.stride() == v.stride()
+        if dtype == torch.bfloat16:
+            assert torch.equal(g, v)
+        else:
+            torch.testing.assert_close(g, v, rtol=1e-6, atol=1e-6)
+
+
+def test_planning_forward_broadcasts_once_per_pyramid():
+    """The Planning stage (TINY's widths, receptive field 3: two
+    TemporalBlocks with pyramid pooling over the whole BEV) takes the
+    broadcast route twice a forward, once in each pyramid; the encoder,
+    the decoder and every 2x upsample take ``F.interpolate``."""
+    import chip_smoke
+    from stp3_tpu_torch.layers.base import init_parameters
+    from stp3_tpu_torch.models.stp3 import STP3, STP3Config
+    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY_WIDTHS,
+                              {'PRECISION': 32})
+    model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
+    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    pyramids = [m for m in model.modules()
+                if isinstance(m, TT.TemporalBlock) and m.use_pyramid_pooling]
+    assert len(pyramids) == 2
+    inside = []
+    temporal = model.temporal_model
+
+    def counted(*a, f=temporal.nchw):
+        n = TC.resize_bilinear.broadcasts
+        out = f(*a)
+        inside.append(TC.resize_bilinear.broadcasts - n)
+        return out
+    temporal.nchw = counted
+    n = TC.resize_bilinear.broadcasts
+    with torch.no_grad():
+        model.eval()(batch['image'], batch['intrinsics'], batch['extrinsics'],
+                     batch['future_egomotion'])
+    assert inside == [2] and TC.resize_bilinear.broadcasts == n + 2
+
+
 def test_pyramid_pooling_same_padding_and_bottleneck3d():
     """A (3, 3) window does not tile 8x8: flax pads SAME, counting the pad."""
     x = _rand(2, 3, 8, 8, 12)
