@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (stp3_tpu_torch) once on one NVIDIA GPU.
+"""Check the PyTorch port (stp3_tpu_torch) once on one NVIDIA GPU: its
+kernels against their plain versions at the real shapes, the launches of
+every path, the compiled calls against eager ones, and each path end to
+end. It times nothing: the port's benchmark (cardbench/, BENCHMARK.json)
+does.
 
-    python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # ... and where each path's time goes
+    python3 chip_smoke.py
 
 Phases, each printing one line (or a few) before the last:
   1. device: card name and power limit, torch / CUDA versions, TF32 flags;
@@ -15,29 +18,22 @@ Phases, each printing one line (or a few) before the last:
      (tests/data/camera_1600x900.jpg) decoded to the SHA-256 of Pillow's
      decode stored beside it, its nuScenes resize + crop to Pillow's;
      PNGs of every mode with all five row filters read back exactly; the
-     resampler against its plain version; the host's ms a decode and a
-     resize + crop;
+     resampler against its plain version;
   3. K1 vs its plain version at the serving (F=3) and training (F=6)
-     splat shapes, ranks from the flagship rig's real geometry, and at the
-     agent's single-frame splat (F=1, the CARLA rig); times of both and of
-     index_add_, the share of the bound, K1's atomic rows per landed
-     point; at the serving shape also the zeroing and the cast alone;
+     splat shapes, ranks from the flagship rig's real geometry, at each
+     stage's and path's splat, and at the agent's single-frame splat (F=1,
+     the CARLA rig);
   4. K2 (fused ConvNeXt MLP, CUDA C++) vs its plain version at the serving
-     and training row counts; times of both and the share of the bound;
+     and training row counts and those of the other paths;
   5. K3 (the splat's backward row gather) vs its plain version at the
-     training shape (6, 483,840, 64), bf16 and fp32, bit for bit; times of
-     both and of torch.gather;
+     training shapes, bf16 and fp32, bit for bit;
   6. backward: K1's autograd Function (K3 backward) vs the plain splat's
      autograd at the training shape, bit for bit;
   [K1 v1] / [K1 v2]: K1's per-frame entries at one flagship frame against
-     the plain version, index_add_ and their bound; then the serving splat
-     with method 'pallas' / 'pallas2' (3 launches, one per frame) against
-     method 'auto' (one launch for all frames);
+     K1's plain version, fp32 and bf16 rows, one launch each;
   [K4]: the fused lift + splat at the flagship fused shape (F=3) against
-     its plain version, beside the path it replaces (the lift, then K1):
-     device time, one event-timed call and the time with the L2 evicted,
-     the share of the bound, K4's atomic rows per landed point and its
-     ptxas report; its backward against autograd through the plain version;
+     its plain version; its backward against autograd through the plain
+     version, with its launches;
   7. CPU-vs-CUDA parity of the tiny model in fp32 (same seeded weights),
      every head, the planner costs on a shared occupancy, and the refined
      trajectory;
@@ -46,48 +42,43 @@ Phases, each printing one line (or a few) before the last:
      gradient;
   9. serving: the full-width flagship (EfficientNet-b4, 6 cameras at
      224x480, 200x200 BEV, 6 future frames, 1,800 candidates) from a
-     seeded init under the bf16 policy: forward + occupancy + plan as
-     bench.py times it, its launch counts and its p50 latency;
+     seeded init under the bf16 policy: forward + occupancy + plan, its
+     launches, every output finite;
  10. training: the Planning stage at full width and batch 2 (bf16 policy,
      fp32 masters, REMAT 'encoder', seeded init, synthetic batches)
      through the compiled train step (Trainer.train_step: two CUDA graphs,
      the gradients' and the update's, captured after WARMUP_CALLS eager
      steps): K1, K3 and K2 twice in the gradients' graph, none in the
-     update's, no counter moved by a replay, then 10 timed replayed steps;
-     loss terms finite, parameters changed, step p50, samples/s and peak
-     memory;
+     update's, no counter moved by a replay; loss terms finite, parameters
+     changed;
      [train graphs]: the compiled step against the eager compute_gradients
-     + apply_gradients of a twin trainer of the same seed (and a second
-     twin: eager against eager), dropout on: the launches in both graphs,
-     wall p50 of both sides in alternating turns, the graphed step's
-     CUDA-event time and busy share, capture seconds, pool MiB and peak
-     memory, the generators equal after every step, loss terms and
-     parameter updates within GRAPH_LIMIT x eager vs eager; val_forward
-     compiled against eager at batch 2 and at a ragged batch of 1 (a
-     second graph); an fp32 trainer's capture (its pool) and replayed p50;
+     + apply_gradients of a twin trainer of the same seed (and two more
+     twins: eager against eager), dropout on, 8 steps after the capture:
+     the launches in both graphs, none on a replay, the generators equal
+     after every step, loss terms and parameter updates within
+     GRAPH_LIMIT x eager vs eager; val_forward compiled against eager at
+     batch 2 and at a ragged batch of 1 (a second graph); an fp32
+     trainer's capture;
      [remat]: the same stage under each MODEL.REMAT tag of REMAT_TAGS
      ('encoder', each other stage with it, and encoder+temporal+decoder+
      cells), from one seeded init and batch: each step's loss terms and
      gradients against the 'encoder' step's, within REMAT_MULTIPLE of the
      distance between two 'encoder' reruns (the bf16 backward's order);
      launches (K1 and K3 once, K2 twice, 4 times under 'future' and
-     'gates', whose recomputation runs the future stage's K2 again); peak
-     memory, and step p50 in 4 turns with a resident 'encoder' trainer,
-     each tag's compiled step capturing its graphs (or raising, naming
-     the tag);
+     'gates', whose recomputation runs the future stage's K2 again); each
+     tag's compiled step capturing its graphs (or raising, naming the
+     tag) and a replayed step finite;
  11. [fused]: the flagship with fused_lift_splat: fp32 BEV features of the
      fused and materialised paths of the same weights, then forward + plan
-     under the bf16 policy (K4 once, K2 twice, K1 never) and its p50; then
-     [fused turns]: the fused and the materialised step of the same
-     weights in turns, 4 each, alternating (p50 of 20 steps a turn);
+     under the bf16 policy (K4 once, K2 twice, K1 never);
  12. [agent]: the CARLA Planning stage at full width (4 cameras at
      256x256, 200x200 BEV at 0.2 m, 2,400 candidates, seeded fp32 weights):
-     AgentCore in its three tick modes over recorded ticks (seeded uint8
-     300x400 frames, GPS 2 m further each tick): controls in range, static
-     vs dynamic single-frame splat, incremental vs full heads at zero
-     ego-motion; each mode's plan_step p50 over 20 ticks (replaying the
-     CUDA graphs the core captured in its warm-up: no wrapper launches in
-     the ticks), the launches in the tick's graph and peak memory;
+     static vs dynamic single-frame splat, incremental vs full heads at
+     zero ego-motion; AgentCore in its three tick modes over recorded
+     ticks (seeded uint8 300x400 frames, GPS 2 m further each tick):
+     controls in range, no wrapper launch in the ticks (they replay the
+     CUDA graphs the core captured in its warm-up), the launches in the
+     tick's graph;
      [graphs]: the compiled fixed-shape serving calls (utils/graphs.py)
      against the eager model, on the [fused] phase's model (the flagship
      step materialised and fused, bench.py's forward + occupancy + plan,
@@ -95,29 +86,24 @@ Phases, each printing one line (or a few) before the last:
      modes, fp32): an eager step under set_sync_debug_mode('error'), the
      launches in each graph equal to the eager step's, none on a replay,
      the refined trajectory, segmentation logits and new BEV cache graphed
-     vs eager within GRAPH_LIMIT x eager vs eager, the wall p50 of both in
-     GRAPH_TURNS (24 calls a side), the compiled call's device time and
-     the busy share, capture seconds and the pool's memory; then a batch-2
-     frame capturing a second graph and a moved parameter raising;
+     vs eager within GRAPH_LIMIT x eager vs eager; then a batch-2 frame
+     capturing a second graph and a moved parameter raising;
  13. the stage train steps, each at full width from a seeded init on
      synthetic batches under its YAML's bf16 policy and REMAT 'encoder'
-     (configured as code: PERCEPTION_STAGE, CARLA_PERCEPTION,
-     PREDICTION_BER), compiled and timed like phase 10, launches in their
-     graphs, loss terms finite,
-     parameters changed, p50, spread, samples/s, peak memory (K1 and K3
-     at each stage's splat shape and K2 at Prediction_Ber's rows are held
-     against their plain versions with the kernel phases above):
-     [perception] nuScenes Perception at batch 3 (K1 and K3 once, K2
-     never); [perception carla] CARLA Perception at batch 6 (6 timed
-     steps); [prediction_ber] Prediction_Ber at batch 2 (K1, K3 once, K2
-     twice);
+     (configured as code in tests/torch_fixtures.py: PERCEPTION_STAGE,
+     CARLA_PERCEPTION, PREDICTION_BER), compiled and checked like phase
+     10 (K1 and K3 at each stage's splat shape and K2 at Prediction_Ber's
+     rows are held against their plain versions with the kernel phases
+     above): [perception] nuScenes Perception at batch 3 (K1 and K3 once,
+     K2 never); [perception carla] CARLA Perception at batch 6;
+     [prediction_ber] Prediction_Ber at batch 2 (K1, K3 once, K2 twice);
  14. [perception bn]: Perception under MODEL.NORM 'bn' (BN_MOMENTUM 0.05):
      one step of one seeded init and batch, dropout off, under REMAT
      'encoder' and 'none' must leave the same running statistics (a
-     second update in the recomputation would not); then the step's p50
-     and peak memory, and an eval forward on the running statistics;
+     second update in the recomputation would not); then its compiled
+     step, and an eval forward on the running statistics;
  15. [bn_frozen]: the flagship forward + plan under MODEL.NORM
-     'bn_frozen', bf16: launches and p50 of 20 steps;
+     'bn_frozen', bf16: launches, outputs finite;
  16. [train_cli]: stp3_tpu_torch.train.run on the full-width Planning
      stage (batch 2, bf16, REMAT 'encoder') over synthetic 'mini' data,
      with PROFILE.ENABLED (2 steps) and VIS_INTERVAL 2: one epoch (5 train
@@ -127,8 +113,8 @@ Phases, each printing one line (or a few) before the last:
      has; the train steps, val forwards and panel forwards replay CUDA
      graphs: the graphs' launches (K1, K3 and K2 twice in the gradients',
      none in the update's, K1 and K2 twice in the validation call's) and
-     the counted launches of the eager and capturing calls an epoch, train
-     and val step p50, checkpoint bytes, save and load ms; the profiler
+     the counted launches of the eager and capturing calls an epoch; a
+     checkpoint saved from the card reads back bit for bit; the profiler
      trace holds exactly steps 2 and 3 and K1's, K3's and K2's kernels;
      visualise_output of a full-width val forward is (T, 1400, 400, 3)
      uint8; DEBUG.NAN_CHECK on a NaN camera image, in a replayed step,
@@ -137,7 +123,7 @@ Phases, each printing one line (or a few) before the last:
  17. [evaluate_planning]: stp3_tpu_torch.evaluate.evaluate on that
      checkpoint at batch 1 (4 samples, each a replay of the validation
      call's graph: K1 once, K2 twice in it): every result key finite and
-     in its range, samples/s;
+     in its range;
  18. [evaluate_prediction]: the same on a checkpoint of the
      Prediction.yml stage at full width (GAUSSIAN, instance and flow
      heads, 4 future frames), the panoptic metrics through the device
@@ -145,7 +131,6 @@ Phases, each printing one line (or a few) before the last:
      kernel phases above;
  19. [decode]: that stage's validation output at full width: the device
      decode (utils/instance_jit.py) equal to the host loop id for id;
-     both timed, and the Hungarian linking;
  20. [labels as prediction]: the labels fed back as the prediction, at
      full width: IoU = PQ = SQ = RQ = 1 for every present class, L2 = 0,
      no collision;
@@ -156,8 +141,7 @@ Phases, each printing one line (or a few) before the last:
      report, only the bookkeeping ignored), evaluated on the card as
      [evaluate_planning] is (K1 once and K2 twice a sample), exported back
      with export_torch_checkpoint and held to the input bit for bit (the
-     planner GRU's r / z biases to their fold); tensors, bytes, import and
-     export seconds, samples/s;
+     planner GRU's r / z biases to their fold);
  22. [carla_agent]: the same for the CARLA Planning stage at full width
      (CAM_FRONT_PARITY set and printed), then the harness
      stp3_tpu_torch.carla_agent.STP3Agent on the card over the recorded
@@ -165,18 +149,16 @@ Phases, each printing one line (or a few) before the last:
      ticks zero, planned ticks equal (1e-5, under deterministic
      algorithms; the spread without them, from the order of fp32 atomic
      adds, printed) to an AgentCore on the same model fed the RGB frames,
-     launches per tick as [agent]'s default (static) mode, the tick p50
-     beside [agent]'s plan_step p50; then the
-     harness with the model cast to bf16: its tick p50 and how many of 20
-     planned ticks select another candidate than fp32;
+     launches per tick as [agent]'s default (static) mode; then the
+     harness with the model cast to bf16: how many of 20 planned ticks
+     select another candidate than fp32;
  23. [nuscenes_data]: the nuScenes Planning stage with LIFT.GT_DEPTH at
      full width (6 cameras at 1600x900 -> 224x480, 3 past and 6 future
      frames, the 200x200 BEV) on the PIL-free stand-in tree of
-     tests/torch_fake_datasets.py through prepare_dataloaders: ms a
-     __getitem__, the loader's samples/s with N_WORKERS (8) process
-     workers, then 10 train steps on its batches (K1 and K3 once a step,
-     K2 twice; every loss term finite, 'depths' among them) and the step
-     p50 beside the loader's rate;
+     tests/torch_fake_datasets.py through prepare_dataloaders with
+     N_WORKERS (8) process workers: 2 epochs of train steps on its batches
+     (K1 and K3 once a step, K2 twice; every loss term finite, 'depths'
+     among them);
  24. [carla_data]: the same for CARLA's Planning stage on stand-in routes
      (4 cameras at 400x300 -> 256, the topdown labels at scale 1.1, the
      hdmap PNGs), with K1, K3 and K2 also held against their plain
@@ -185,10 +167,9 @@ Phases, each printing one line (or a few) before the last:
      data-parallel Trainer over NCCL at world 1 beside the plain Trainer:
      the all-reduce over one rank and the division by 1 leave the
      gradients and the loss terms bit for bit, and clip + Adam on them the
-     parameters; one distributed step's launches (K1, K3, K2 twice); both
-     trainers' step p50 in turns and the 42 MB gradient all-reduce alone
-     (K3 at batch 1 and K1 at one rank's cameras are held against their
-     plain versions with the kernel phases);
+     parameters; one distributed step's launches (K1, K3, K2 twice) (K3
+     at batch 1 and K1 at one rank's cameras are held against their plain
+     versions with the kernel phases);
  26. [dp 2 ranks] / [dp bn]: two ranks of this script (``--rank dp``)
      share the card over gloo (NCCL refuses two ranks on one device):
      the full-width Planning stage in fp32 (TF32 off, dropout off, a fixed
@@ -206,22 +187,13 @@ Phases, each printing one line (or a few) before the last:
      in fp32: forward + plan, serve_step and serve_step_static against the
      one-process port (occupancy, the selected candidate, the refined
      trajectory), each rank's launches (K1 once a forward, never the plain
-     splat), the plan step's p50 per rank beside one process's (ranks
-     sharing one card: not a latency).
+     splat).
 Every multi-rank group runs under a deadline (RANKS_TIMEOUT_S): a rank that
 fails or outlives it ends the group and fails the script.
-With --profile, torch.profiler windows of 3 calls (device events, summed
-device time against the wall time, the kernels that take the most) of the
-serving and fused forward + plan, of a train step and of each agent tick
-mode; after phase 10 also the train step split by CUDA events into loss
-(labels + forward + losses), backward and clip + Adam, and the host's
-time to issue a step; in [fused turns] per turn the host's issue time,
-the SM clock and power, the device's events, time and idle gaps, then the
-kernels and the host ops of each variant.
-Then one JSON line with every kernel's numbers (the numbers of the path
-each kernel was measured on at the top level, each path's launches and
-times under "paths"), and last {"ok": true, "device": {...}}. Any failure
-exits non-zero before that.
+Then one JSON line with every kernel's launches on each path and its
+largest distance from its plain version at each shape it was held to
+(under "paths"), and last {"ok": true, "device": {...}}. Any failure exits
+non-zero before that.
 Without a CUDA device, or without the repository beside it, it fails.
 """
 from __future__ import annotations
@@ -232,155 +204,20 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 
-SEED = 0
-
-# The flagship: the nuScenes Planning stack at full width (EfficientNet-b4,
-# 6 cameras at 224x480, 200x200 BEV, 6 future frames, 1,800 candidates)
-FLAGSHIP = {
-    'N_FUTURE_FRAMES': 6, 'FUTURE_DISCOUNT': 0.95, 'PROBABILISTIC': {'ENABLED': True},
-    'PLANNING': {'ENABLED': True, 'SAMPLE_NUM': 1800},
-    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
-}
-# stp3_tpu/configs/nuscenes/Planning.yml, as code (PyYAML is not needed)
-PLANNING_STAGE = {
-    'TAG': 'Planning', 'BATCHSIZE': 2, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
-    'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 6, 'FUTURE_DISCOUNT': 0.95,
-    'DATASET': {'VERSION': 'trainval'}, 'LIFT': {'GT_DEPTH': False},
-    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
-              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
-              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
-    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': True}, 'HDMAP': {'ENABLED': True}},
-    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
-    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'GAUSSIAN'},
-    'PLANNING': {'ENABLED': True, 'SAMPLE_NUM': 1800}, 'OPTIMIZER': {'LR': 2e-4},
-    'COST_FUNCTION': {'SAFETY': 1.0, 'HEADWAY': 1.0, 'LRDIVIDER': 10.0, 'COMFORT': 0.1,
-                      'PROGRESS': 0.5, 'VOLUME': 100.0},
-    'PRETRAINED': {'LOAD_WEIGHTS': True},
-}
-# the tiny model of the parity phases: b0, 2 cameras at 32x64, 16x16 BEV
-TINY = {
-    'TIME_RECEPTIVE_FIELD': 2, 'N_FUTURE_FRAMES': 2,
-    'IMAGE': {'FINAL_DIM': (32, 64), 'NAMES': ['CAM_L', 'CAM_R']},
-    'LIFT': {'X_BOUND': [-8.0, 8.0, 1.0], 'Y_BOUND': [-8.0, 8.0, 1.0],
-             'D_BOUND': [2.0, 10.0, 1.0]},
-    'MODEL': {'ENCODER': {'NAME': 'efficientnet-b0', 'OUT_CHANNELS': 16},
-              'TEMPORAL_MODEL': {'START_OUT_CHANNELS': 16},
-              'DISTRIBUTION': {'LATENT_DIM': 4}},
-    'PLANNING': {'SAMPLE_NUM': 12, 'GRU_STATE_SIZE': 2},
-}
-
-
-# stp3_tpu/configs/carla/Planning.yml, as code: the agent's configuration
-CARLA_PLANNING = {
-    'TAG': 'CARLA_planning', 'BATCHSIZE': 2, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
-    'DATASET': {'NAME': 'carla'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 4,
-    'IMAGE': {'FINAL_DIM': (256, 256), 'NAMES': ['front', 'left', 'right', 'rear'],
-              'ORIGINAL_HEIGHT': 300, 'ORIGINAL_WIDTH': 400},
-    'LIFT': {'X_BOUND': [-20.0, 20.0, 0.2], 'Y_BOUND': [-20.0, 20.0, 0.2], 'GT_DEPTH': False},
-    'EGO': {'WIDTH': 2.12, 'HEIGHT': 4.90},
-    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
-              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
-              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
-    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': True}, 'HDMAP': {'ENABLED': True}},
-    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
-    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'GAUSSIAN'},
-    'PLANNING': {'ENABLED': True, 'GRU_STATE_SIZE': 128, 'SAMPLE_NUM': 2400},
-    'FUTURE_DISCOUNT': 0.95, 'OPTIMIZER': {'LR': 2e-4},
-    'COST_FUNCTION': {'SAFETY': 1.0, 'HEADWAY': 1.0, 'LRDIVIDER': 10.0, 'COMFORT': 1.0,
-                      'PROGRESS': 1.0, 'VOLUME': 100.0},
-    'PRETRAINED': {'LOAD_WEIGHTS': True},
-}
-
-
-# stp3_tpu/configs/nuscenes/Perception.yml, as code: stage 1 (no future
-# prediction, no present distribution, no planner)
-PERCEPTION_STAGE = {
-    'TAG': 'Perception', 'BATCHSIZE': 3, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
-    'DATASET': {'VERSION': 'trainval'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 0,
-    'LIFT': {'GT_DEPTH': False},
-    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
-              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
-              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
-    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': True}, 'HDMAP': {'ENABLED': True}},
-    'INSTANCE_SEG': {'ENABLED': False}, 'INSTANCE_FLOW': {'ENABLED': False},
-    'PROBABILISTIC': {'ENABLED': False}, 'PLANNING': {'ENABLED': False},
-    'OPTIMIZER': {'LR': 1e-3},
-}
-# stp3_tpu/configs/carla/Perception.yml, as code: 4 cameras at 256x256,
-# a +-20 m BEV grid at 0.2 m
-CARLA_PERCEPTION = {
-    **PERCEPTION_STAGE, 'TAG': 'CARLA_perception', 'BATCHSIZE': 6, 'DATASET': {'NAME': 'carla'},
-    'IMAGE': {'FINAL_DIM': (256, 256), 'NAMES': ['front', 'left', 'right', 'rear'],
-              'ORIGINAL_HEIGHT': 300, 'ORIGINAL_WIDTH': 400},
-    'LIFT': {'X_BOUND': [-20.0, 20.0, 0.2], 'Y_BOUND': [-20.0, 20.0, 0.2], 'GT_DEPTH': False},
-}
-# stp3_tpu/configs/nuscenes/Prediction_Ber.yml, as code: stage 2 with a
-# Bernoulli spatial latent
-PREDICTION_BER = {
-    'TAG': 'Prediction_Ber', 'BATCHSIZE': 2, 'PRECISION': 16, 'EPOCHS': 20, 'N_WORKERS': 8,
-    'DATASET': {'VERSION': 'trainval'}, 'TIME_RECEPTIVE_FIELD': 3, 'N_FUTURE_FRAMES': 4,
-    'LIFT': {'GT_DEPTH': False},
-    'MODEL': {'REMAT': 'encoder', 'BN_MOMENTUM': 0.05,
-              'ENCODER': {'NAME': 'efficientnet-b4', 'USE_DEPTH_DISTRIBUTION': True},
-              'TEMPORAL_MODEL': {'NAME': 'temporal_block', 'INPUT_EGOPOSE': True}},
-    'SEMANTIC_SEG': {'PEDESTRIAN': {'ENABLED': False}, 'HDMAP': {'ENABLED': False}},
-    'INSTANCE_FLOW': {'ENABLED': True},
-    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'BERNOULLI'},
-    'PLANNING': {'ENABLED': False}, 'FUTURE_DISCOUNT': 0.95, 'OPTIMIZER': {'LR': 2e-4},
-    'PRETRAINED': {'LOAD_WEIGHTS': True},
-}
-# stp3_tpu/configs/nuscenes/Prediction.yml, as code: stage 2 (GAUSSIAN latent,
-# instance and flow heads, no planner)
-PREDICTION_STAGE = {**PREDICTION_BER, 'TAG': 'Prediction',
-                    'PROBABILISTIC': {'ENABLED': True, 'METHOD': 'GAUSSIAN'}}
-# the synthetic data of the train / evaluate CLI paths: 10 training samples
-# (5 steps at batch 2) and 4 validation samples, one epoch a run
-CLI_DATA = {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini', 'VAL_SAMPLES': 4},
-            'EPOCHS': 1, 'LOGGING_INTERVAL': 1}
-# the tiny widths over a stage's own depth (its receptive field, future
-# frames and switches), fp32
-TINY_WIDTHS = {k: v for k, v in TINY.items()
-               if k not in ('TIME_RECEPTIVE_FIELD', 'N_FUTURE_FRAMES')}
-STAGES = {'perception': PERCEPTION_STAGE, 'carla_perception': CARLA_PERCEPTION,
-          'prediction_ber': PREDICTION_BER, 'prediction': PREDICTION_STAGE}
-
-
-def make_cfg(*overrides):
-    """The port's default config with the nested overrides merged in order."""
-    from stp3_tpu_torch.config import CfgNode, get_cfg
-    cfg = get_cfg()
-    for override in overrides:
-        cfg.merge_from_other_cfg(CfgNode(override))
-    return cfg
-
-
-def flagship_cfg(tiny: bool = False):
-    return make_cfg(FLAGSHIP, TINY) if tiny else make_cfg(FLAGSHIP)
-
-
-def planning_cfg(tiny: bool = False):
-    """The Planning stage's training config; ``tiny`` in fp32."""
-    return make_cfg(PLANNING_STAGE, TINY, {'PRECISION': 32}) if tiny else make_cfg(
-        PLANNING_STAGE)
-
-
-def carla_planning_cfg():
-    return make_cfg(CARLA_PLANNING)
-
-
-def stage_cfg(stage: str, tiny: bool = False, *overrides):
-    """The training config of a stage of ``STAGES``, then ``overrides``;
-    ``tiny``: at TINY's widths in fp32 (CARLA's four cameras kept, at
-    32x32)."""
-    if not tiny:
-        return make_cfg(STAGES[stage], *overrides)
-    cams = ({'IMAGE': {'FINAL_DIM': (32, 32), 'NAMES': CARLA_PERCEPTION['IMAGE']['NAMES']}}
-            if stage == 'carla_perception' else {})
-    return make_cfg(STAGES[stage], TINY_WIDTHS, cams, {'PRECISION': 32}, *overrides)
+# the configurations as code and the seeded inputs, shared with the tests,
+# and the PIL-free stand-in datasets (importable by the loaders' workers too)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), 'tests'))
+import torch_fake_datasets as fake  # noqa: E402
+from torch_fixtures import (  # noqa: E402
+    AGENT_ROUTE, CAMS, CARLA_DATA, CARLA_PLANNING, CLI_DATA, FLAGSHIP, NUSCENES_DATA,
+    PLANNING_STAGE, PREDICTION_STAGE, SEED, bgra_tick, build_model, carla_planning_cfg,
+    check_export, depth_probs, example_inputs, flagship_cfg, k4_inputs, make_cfg, model_cfg,
+    plan_step, planning_cfg, planning_result_keys, ptxas_summary, recorded_ticks,
+    rig_geometry, running_stats, splat_ranks, stage_cfg, step_grads, synthetic_batches,
+    to_torch, write_reference_checkpoint)
 
 
 # the kernels: name, route, source, the TPU kernel each replaces, and the
@@ -483,39 +320,6 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-# the kernels' mangled template arguments; a substitution (S_, S0_, ...)
-# repeats an earlier argument, in these kernels the one before it
-_MANGLED = {'13__nv_bfloat16': 'bf16', 'f': 'float', 't': 'uint16_t', 'j': 'uint32_t',
-            '5uint4': 'uint4'}
-
-
-def ptxas_summary(log: str) -> list:
-    """One 'kernel: registers, shared memory, spills' entry per entry
-    function of an nvcc '-Xptxas -v' log."""
-    import re
-    out, name, spills = [], '?', ''
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            # the kernel's name and its mangled template arguments
-            base = re.search(r'([a-z][a-z_]*_kernel)I(\w*?)EE', m.group(1))
-            name = m.group(1)
-            if base:
-                args = []
-                for tok in re.findall(r'13__nv_bfloat16|5uint4|S\d*_|[a-z]', base.group(2)):
-                    args.append(args[-1] if tok.startswith('S') else _MANGLED.get(tok, tok))
-                name = f'{base.group(1)}<{", ".join(args)}>'
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
-        if m:
-            spills = f'spills {m.group(1)}/{m.group(2)} B'
-        m = re.search(r'Used (\d+) registers', line)
-        if m:
-            smem = re.search(r'(\d+) bytes smem', line)
-            out.append(f'{name}: {m.group(1)} registers, {smem.group(1) if smem else 0} B static '
-                       f'smem, {spills}')
-    return out
-
-
 def build_kernels(repo: str) -> None:
     """nvcc-build K1+K3 (bev_pool.cu), K4 (lift_splat.cu) and K2
     (convnext_mlp.cu) at once, one nvcc per source."""
@@ -524,16 +328,14 @@ def build_kernels(repo: str) -> None:
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
     from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
     from stp3_tpu_torch.ops.kernels import lift_splat as K4
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         infos = list(pool.map(lambda build: build(), (K1.build, K4.build, K2.build)))
     for name, info in zip(('K1+K3', 'K4', 'K2'), infos):
-        say(f"[build] {name} {'built' if info['built'] else 'reused'} in {info['seconds']:.2f} s "
+        say(f"[build] {name} {'built' if info['built'] else 'reused'} "
             f"-> {os.path.relpath(info['path'], repo)}; ptxas: "
             + ' | '.join(ptxas_summary(info['log'])))
     say(f'[build] K2 dynamic shared memory a CTA: {K2.shared_memory_bytes(torch.bfloat16)} B '
         f'(bf16 rows), {K2.shared_memory_bytes(torch.float32)} B (fp32 rows)')
-    say(f'[build] all three builds done in {time.perf_counter() - t0:.2f} s of wall time')
 
 
 def fail(msg: str) -> None:
@@ -543,115 +345,6 @@ def fail(msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def example_inputs(cfg, seed: int = SEED, b: int = 1):
-    """numpy twin of __graft_entry__._example_inputs + _planning_extras
-    (the rig and the ego-motion repeat over a batch of ``b``)."""
-    rng = np.random.RandomState(seed)
-    rf, n = cfg.TIME_RECEPTIVE_FIELD, len(cfg.IMAGE.NAMES)
-    h, w = cfg.IMAGE.FINAL_DIM
-    image = rng.rand(b, rf, n, h, w, 3).astype(np.float32)
-    k = np.tile(np.array([[0.3 * w, 0, w / 2], [0, 0.3 * w, h / 2], [0, 0, 1]],
-                         np.float32), (b, rf, n, 1, 1))
-    e = np.tile(np.eye(4, dtype=np.float32), (b, rf, n, 1, 1))
-    for i in range(n):
-        yaw = 2 * np.pi * i / n
-        rot = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
-        yawm = np.array([[np.cos(yaw), -np.sin(yaw), 0],
-                         [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]], np.float32)
-        e[:, :, i, :3, :3] = yawm @ rot
-        e[:, :, i, :3, 3] = [1.5 * np.cos(yaw), 1.5 * np.sin(yaw), 1.6]
-    ego = np.tile(np.array([2.0, 0, 0, 0, 0, 0.01], np.float32), (b, rf, 1))
-    rng = np.random.RandomState(seed)
-    nf = cfg.N_FUTURE_FRAMES
-    extras = {
-        'trajs': rng.randn(1, cfg.PLANNING.SAMPLE_NUM, nf, 3).astype(np.float32),
-        'gt_trajs': rng.randn(1, nf, 3).astype(np.float32),
-        'commands': np.zeros((1,), np.int64),
-        'target_points': np.zeros((1, 2), np.float32),
-    }
-    return (image, k, e, ego), extras
-
-
-def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
-    """Median of per-call CUDA-event times after warm-up."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def device_ms(fn, calls: int = 10, reps: int = 7) -> float:
-    """Device time of one call of ``fn``: ``calls`` calls captured in one
-    CUDA graph, replayed ``reps`` times, the median replay (CUDA events)
-    over ``calls``. Unlike ``time_ms`` it leaves out the host's time to
-    issue the call (Python, the wrapper, the launches)."""
-    import torch
-    for _ in range(3):
-        fn()                                  # warm-up: builds, caches, the allocator
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return time_ms(graph.replay, warmup=1, iters=reps) / calls
-
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {'bf16': 989e12, 'fp32': 67e12}
-
-
-def bound(n_bytes: float, n_ops: float, kind: str):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the peak rate of their type."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / PEAK_OPS_PER_S[kind]
-    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def rig_geometry(cfg, device, b: int = 1, carla: bool = False):
-    """(geometry (B, rf, N, D, Hf, Wf, 3), ego (B, rf, 6), (res, start,
-    dim)) of the example rig and ego-motion, or of the fixed CARLA rig at
-    zero ego-motion."""
-    import torch
-    from stp3_tpu_torch.datas.carla_data import carla_cam_rig
-    from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
-                                             create_frustum, get_geometry)
-    mc = model_cfg(cfg)
-    (_, k, e, ego), _ = example_inputs(cfg, b=b)
-    if carla:
-        extr, intr = carla_cam_rig(mc.final_dim)
-        k, e = (np.tile(a, (b, mc.receptive_field, 1, 1, 1)) for a in (intr, extr))
-        ego = np.zeros_like(ego)
-    grid = calculate_birds_eye_view_parameters(mc.x_bound, mc.y_bound, mc.z_bound)
-    fr = torch.as_tensor(create_frustum(mc.final_dim, mc.encoder_downsample, mc.d_bound),
-                         device=device)
-    k, e, ego = to_torch((k, e, ego), device)
-    return get_geometry(fr, k, e), ego, grid
-
-
-def splat_ranks(cfg, device, b: int = 1):
-    """(F = b * rf, P) int32 ranks of the flagship rig's real frustum
-    geometry, pre-warped by the example ego-motion, as the model splats."""
-    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
-    geometry, ego, (res, start, dim) = rig_geometry(cfg, device, b)
-    return prewarped_ranks(geometry, ego, res, start, dim), int(np.prod(dim))
 
 
 def phase_k1(cfg, device, path: str, b: int = 1, ranks=None):
@@ -674,46 +367,17 @@ def phase_k1(cfg, device, path: str, b: int = 1, ranks=None):
     # fp32 on both sides; only the (atomic) summation order differs
     ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
     valid = (ranks < ncells).sum().item()
-    # the timed window: zeroing the (F, ncells, C) fp32 accumulator, the
-    # kernel and the cast of the sums to bf16
-    ms = device_ms(lambda: K1.bev_splat(feats, ranks, ncells))
-    call_ms = time_ms(lambda: K1.bev_splat(feats, ranks, ncells))
-    plain_ms = device_ms(lambda: K1.bev_splat_plain(feats, ranks, ncells))
-    # one PyTorch call of the same scatter-add: index_add_ onto a flat buffer
-    flat_idx = (ranks.long() + torch.arange(f, device=device)[:, None] * (ncells + 1)).reshape(-1)
-    buf = torch.zeros(f * (ncells + 1), c, dtype=feats.dtype, device=device)
-    flat_feats = feats.reshape(-1, c)
-    library_ms = device_ms(lambda: buf.index_add_(0, flat_idx, flat_feats))
-    # every rank and the rows of the points that land in the grid read once
-    # (a dropped point's row is never needed), the (F, ncells, C) result
-    # written once; one add per channel of each point that lands
-    n_bytes = valid * c * feats.element_size() + nbytes(ranks) + (
-        f * ncells * c * feats.element_size())
-    bound_ms, bound_by = bound(n_bytes, valid * c, 'fp32')
-    rows = K1.atomic_rows_per_landed_point(ranks, ncells)
     say(f'[K1 {path}] bev_splat F={f} P={p} C={c} ncells={ncells} bf16, invalid share '
         f'{1 - valid / (f * p):.4f}: max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) '
-        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.4f} ms (zeroing the fp32 sums, the kernel, '
-        f'the cast to bf16; {call_ms:.4f} ms a call with the host\'s issue time), plain '
-        f'{plain_ms:.3f} ms, index_add_ {library_ms:.3f} ms, bound '
-        f'{bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), bound_share '
-        f'{bound_ms / ms:.3f}; atomic rows per landed point {rows:.4f} (tile {K1.TILE})')
+        f'{"OK" if ok else "MISMATCH"}')
     if not ok:
         fail(f'K1 disagrees with its plain version at F={f}')
-    if path == 'serving':
-        zero_ms = device_ms(lambda: torch.zeros(f, ncells, c, device=device))
-        sums = K1.bev_splat_accumulate(feats, ranks, ncells)
-        cast_ms = device_ms(lambda: sums.to(feats.dtype))
-        say(f'[K1 {path}] of the kernel\'s {ms:.4f} ms: zeroing the fp32 sums alone '
-            f'{zero_ms:.4f} ms, the cast to bf16 alone {cast_ms:.4f} ms')
-    return dict(shape=f'F={f} P={p} C={c} ncells={ncells} bf16', max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                bound_share=bound_ms / ms, atomic_rows_per_landed_point=rows)
+    return dict(shape=f'F={f} P={p} C={c} ncells={ncells} bf16', max_abs_err=err)
 
 
 def phase_k2(cfg, device, path: str, b: int = 1):
     """K2 vs its plain version at the two ConvNeXt row counts of a batch of
-    ``b``; returns its numbers (summed over both calls) for ``path``."""
+    ``b``; returns its numbers for ``path``."""
     import torch
     from stp3_tpu_torch.ops.kernels import convnext_mlp as K2
     c = cfg.MODEL.TEMPORAL_MODEL.START_OUT_CHANNELS
@@ -729,7 +393,7 @@ def phase_k2(cfg, device, path: str, b: int = 1):
                rnd(c, 4 * c, scale=c ** -0.5), rnd(4 * c, scale=0.1),
                rnd(4 * c, c, scale=(4 * c) ** -0.5), rnd(c, scale=0.1),
                rnd(c, scale=0.5))
-    per_shape, errs, ms, plain_ms, bound_ms, bound_by = [], [], 0.0, 0.0, 0.0, set()
+    rows, errs = [], []
     for frames in (nf, rf + nf):          # after the DualGRU; after SpatialGRU 1
         n = b * frames * nx * ny
         h = rnd(n, c).to(torch.bfloat16)
@@ -738,37 +402,19 @@ def phase_k2(cfg, device, path: str, b: int = 1):
         want = K2.convnext_mlp_plain(h, x, *weights)
         err = (got.float() - want.float()).abs().max().item()
         ok = torch.allclose(got.float(), want.float(), rtol=1e-2, atol=1e-2)
-        t_k = device_ms(lambda: K2.convnext_mlp(h, x, *weights))
-        t_call = time_ms(lambda: K2.convnext_mlp(h, x, *weights))
-        t_p = device_ms(lambda: K2.convnext_mlp_plain(h, x, *weights))
-        # h, x and the weights read once, y written once; two (N, C) x (C, 4C)
-        # products of 2 operations per multiply-add, on the bf16 tensor cores
-        t_b, by = bound(nbytes(h, x, h) + nbytes(*weights),
-                        2 * 2 * n * c * 4 * c, 'bf16')
         say(f'[K2 {path}] convnext_mlp N={n} C={c} bf16: max_abs_err {err:.3e} (rtol=atol=1e-2) '
-            f'{"OK" if ok else "MISMATCH"}; kernel {t_k:.4f} ms ({t_call:.4f} ms a call with the '
-            f'host\'s issue time), plain {t_p:.3f} ms, bound '
-            f'{t_b:.4f} ms ({by}), bound_share {t_b / t_k:.3f}; no single PyTorch call computes '
-            f'this function')
+            f'{"OK" if ok else "MISMATCH"}')
         if not ok:
             fail(f'K2 disagrees with its plain version at N={n}')
-        per_shape.append(dict(n=n, max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=t_b,
-                              bound_share=t_b / t_k))
+        rows.append(n)
         errs.append(err)
-        ms += t_k
-        plain_ms += t_p
-        bound_ms += t_b
-        bound_by.add(by)
-    return dict(shape=f'N={" and ".join(str(s["n"]) for s in per_shape)} C={c} bf16',
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by='/'.join(sorted(bound_by)), library_ms=None, bound_share=bound_ms / ms,
-                per_shape=per_shape)
+    return dict(shape=f'N={" and ".join(map(str, rows))} C={c} bf16', max_abs_err=max(errs))
 
 
 def phase_k3(cfg, device, path: str = 'train'):
     """K3 at a training shape: the splat's cotangent (F, ncells, C) and the
-    ranks of the config's rig at batch B = cfg.BATCHSIZE; returns its
-    numbers for ``path``."""
+    ranks of the config's rig at batch B = cfg.BATCHSIZE, bf16 and fp32,
+    bit for bit; returns its numbers for ``path``."""
     import torch
     from stp3_tpu_torch.ops.kernels import bev_splat as K
     ranks, ncells = splat_ranks(cfg, device, b=int(cfg.BATCHSIZE))
@@ -785,25 +431,9 @@ def phase_k3(cfg, device, path: str = 'train'):
             fail(f'K3 differs from its plain version ({table.dtype}): max_abs_err '
                  f'{(got.float() - want.float()).abs().max().item():.3e}')
         parts.append(str(table.dtype).replace('torch.', ''))
-    table = table32.to(torch.bfloat16)                      # the bf16 policy's cotangent
-    ms = device_ms(lambda: K.gather_rows(table, ranks))
-    plain_ms = device_ms(lambda: K.gather_rows_plain(table, ranks))
-    # one PyTorch call of the same gather: torch.gather from the padded table
-    padded = torch.cat([table, table.new_zeros(f, 1, c)], 1)
-    idx = ranks.long().clamp(0, ncells)[..., None].expand(-1, -1, c)
-    library_ms = device_ms(lambda: torch.gather(padded, 1, idx))
-    # every rank and the table rows that some rank names read once (a row
-    # no point lands on is never needed), the (F, P, C) rows written once
-    referenced = sum(torch.unique(r[(r >= 0) & (r < ncells)]).numel() for r in ranks)
-    n_bytes = (referenced * c + f * p * c) * table.element_size() + nbytes(ranks)
-    bound_ms, bound_by = bound(n_bytes, 0, 'bf16')
-    say(f'[K3 {path}] gather_rows F={f} P={p} C={c} ncells={ncells} ({referenced / (f * ncells):.4f} '
-        f'of the rows referenced): equal to its plain version bit for bit in '
-        f'{" and ".join(parts)}; bf16 kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
-        f'torch.gather {library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
-        f'{n_bytes / 1e6:.1f} MB)')
-    return dict(shape=f'F={f} P={p} C={c} ncells={ncells} bf16', max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    say(f'[K3 {path}] gather_rows F={f} P={p} C={c} ncells={ncells}: equal to its plain version '
+        f'bit for bit in {" and ".join(parts)}')
+    return dict(shape=f'F={f} P={p} C={c} ncells={ncells} bf16', max_abs_err=0.0)
 
 
 def phase_backward(cfg, device):
@@ -833,18 +463,12 @@ def phase_backward(cfg, device):
         f'splat\'s autograd')
 
 
-def model_cfg(cfg):
-    from stp3_tpu_torch.models.stp3 import STP3Config
-    return STP3Config.from_cfg(cfg)
-
-
 def phase_per_frame(cfg, device):
     """[K1 v1] / [K1 v2]: K1's per-frame entries at one flagship frame (the
-    present frame's ranks) against the plain version, then the serving
-    splat with method 'pallas' / 'pallas2' against 'auto'. Returns (numbers
-    by entry, launches of the per-frame path)."""
+    present frame's ranks) against K1's plain version, fp32 and bf16 rows,
+    one launch each. Returns (numbers by entry, their launches)."""
     import torch
-    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks, project_to_birds_eye_view
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
     from stp3_tpu_torch.ops.kernels import bev_splat as K1
     geometry, ego, (res, start, dim) = rig_geometry(cfg, device)
     ranks = prewarped_ranks(geometry, ego, res, start, dim)[-1].contiguous()
@@ -855,13 +479,16 @@ def phase_per_frame(cfg, device):
     feats32 = torch.randn(p, c, generator=gen).to(device)
     feats = feats32.to(torch.bfloat16)
     valid = (ranks < ncells).sum().item()
-    rows = K1.atomic_rows_per_landed_point(ranks[None], ncells)
-    numbers = {}
+    numbers, path_launches = {}, dict.fromkeys(counters(), 0)
     for name, version in (('bev_pool_v1', 'v1'), ('bev_pool_v2', 'v2')):
         entry = getattr(K1, name)
+        reset_launches()
         got32 = entry(feats32, ranks, ncells)
-        want32 = K1.bev_splat_accumulate_plain(feats32[None], ranks[None], ncells)[0]
         got16 = entry(feats, ranks, ncells)
+        launches = read_launches()
+        expect_launches(f'K1 {version}, fp32 and bf16 rows', launches, **{name: 2})
+        path_launches[name] += launches[name]
+        want32 = K1.bev_splat_accumulate_plain(feats32[None], ranks[None], ncells)[0]
         want16 = K1.bev_splat_plain(feats[None], ranks[None], ncells)[0]
         torch.cuda.synchronize()
         err = (got32 - want32).abs().max().item()
@@ -869,108 +496,22 @@ def phase_per_frame(cfg, device):
         # the same sums (reordered), so at most one bf16 rounding (2^-8) apart
         ok = (torch.allclose(got32, want32, rtol=1e-4, atol=1e-3)
               and torch.allclose(got16.float(), want16.float(), rtol=2 ** -7, atol=1e-3))
-        ms = device_ms(lambda: entry(feats, ranks, ncells))
-        plain_ms = device_ms(lambda: K1.bev_splat_plain(feats[None], ranks[None], ncells))
-        buf = torch.zeros(ncells + 1, c, dtype=feats.dtype, device=device)
-        idx = ranks.long()
-        library_ms = device_ms(lambda: buf.index_add_(0, idx, feats))
-        n_bytes = valid * c * feats.element_size() + nbytes(ranks) + ncells * c * 2
-        bound_ms, bound_by = bound(n_bytes, valid * c, 'fp32')
-        say(f'[K1 {version}] {name} P={p} C={c} ncells={ncells} bf16 (one flagship frame, '
+        say(f'[K1 {version}] {name} P={p} C={c} ncells={ncells} (one flagship frame, '
             f'invalid share {1 - valid / p:.4f}): max_abs_err {err:.3e} on fp32 rows (rtol '
             f'1e-4, atol 1e-3), bf16 rows within one rounding, {"OK" if ok else "MISMATCH"}; '
-            f'kernel {ms:.3f} ms (zeroing, kernel, cast), plain {plain_ms:.3f} ms, index_add_ '
-            f'{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB), '
-            f'bound_share {bound_ms / ms:.3f}; atomic rows per landed point {rows:.4f} (tile '
-            f'{K1.TILE})')
+            f'one launch each')
         if not ok:
             fail(f'K1 {version} disagrees with its plain version')
-        numbers[name] = dict(shape=f'P={p} C={c} ncells={ncells} bf16', max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms, bound_share=bound_ms / ms,
-                             atomic_rows_per_landed_point=rows)
-
-    # the per-frame path: the serving splat with one launch per frame, fp32
-    # lifted rows so that the methods compare at K1's tolerance
-    mc = model_cfg(cfg)
-    n = len(cfg.IMAGE.NAMES)
-    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
-    lifted = torch.randn(1, mc.receptive_field, n, mc.depth_channels, hf, wf, c,
-                         generator=torch.Generator(device=device).manual_seed(SEED),
-                         device=device)
-    args = (lifted, geometry, ego, res, start, dim, mc.discount)
-    reset_launches()
-    want = project_to_birds_eye_view(*args, method='auto')
-    expect_launches("method 'auto'", read_launches(), bev_splat=1)
-    path_launches = dict.fromkeys(counters(), 0)
-    for method, name in (('pallas', 'bev_pool_v1'), ('pallas2', 'bev_pool_v2')):
-        reset_launches()
-        got = project_to_birds_eye_view(*args, method=method)
-        launches = read_launches()
-        expect_launches(f'method {method!r}', launches, **{name: mc.receptive_field})
-        path_launches[name] += launches[name]
-        err = (got - want).abs().max().item()
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f'project_to_birds_eye_view method {method!r} differs from \'auto\': '
-                 f'max_abs_err {err:.3e}')
-        say(f'[K1 per_frame] project_to_birds_eye_view {tuple(lifted.shape)} fp32, method '
-            f'{method!r}: {launches[name]} launches of {name} (one per frame), equal to '
-            f"method 'auto' (one K1 launch) within rtol 1e-4, atol 1e-3: max_abs_err {err:.3e}")
+        numbers[name] = dict(shape=f'P={p} C={c} ncells={ncells} bf16', max_abs_err=err)
     return numbers, path_launches
-
-
-def cold_ms(fn, flush) -> float:
-    """``device_ms`` of ``fn`` with ``flush`` (a buffer larger than the
-    card's 50 MB L2) zeroed before each call, less the zeroing's own time:
-    the time of a call that finds its inputs out of the L2."""
-    return device_ms(lambda: (flush.zero_(), fn())) - device_ms(flush.zero_)
-
-
-def k4_inputs(cfg, device):
-    """The fused splat's inputs at the flagship rig: (F, N, Hf, Wf, C) bf16
-    context and (F, N, Hf, Wf, D) bf16 depth logits, seeded, of F = rf
-    frames; the (F, P) pre-warped ranks of the rig's real geometry; the
-    (P,) ray ids; ncells."""
-    import torch
-    from stp3_tpu_torch.ops.bev_pool import lift_ray_ids
-    ranks, ncells = splat_ranks(cfg, device)
-    mc = model_cfg(cfg)
-    f = ranks.shape[0]
-    n, d, c = len(cfg.IMAGE.NAMES), mc.depth_channels, cfg.MODEL.ENCODER.OUT_CHANNELS
-    hf, wf = (v // mc.encoder_downsample for v in mc.final_dim)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    feat = torch.randn(f, n, hf, wf, c, generator=gen, device=device).to(torch.bfloat16)
-    logits = torch.randn(f, n, hf, wf, d, generator=gen, device=device).to(torch.bfloat16)
-    return feat, logits, ranks, lift_ray_ids(n, d, hf, wf, device), ncells
-
-
-def depth_probs(logits):
-    """(F, N, Hf, Wf, D) depth logits -> (F, P) probabilities in K4's point
-    order (camera, depth bin, pixel row, pixel column)."""
-    import torch
-    return torch.softmax(logits, -1).movedim(-1, 2).reshape(logits.shape[0], -1).contiguous()
-
-
-def k4_bound(ctx, dp, ranks, rays, ncells):
-    """(bound_ms, bound_by, bytes) of K4: every rank read once; the ray id
-    and dp of each point that lands; the ctx table once; the (F, ncells,
-    C) result written once in ctx's dtype; a multiply and an add per
-    channel of each point that lands."""
-    f, _, c = ctx.shape
-    valid = (ranks < ncells).sum().item()
-    n_bytes = (nbytes(ranks) + valid * (rays.element_size() + dp.element_size()) + nbytes(ctx)
-               + f * ncells * c * ctx.element_size())
-    return bound(n_bytes, 2 * valid * c, 'fp32') + (n_bytes,)
 
 
 def phase_k4(cfg, device):
     """[K4]: the fused lift + splat at the flagship fused shape (F = rf
     frames, bf16 ctx and depth probabilities, the rig's real ranks) against
-    its plain version and the path it replaces; its backward (fp32) against
-    autograd through the plain version."""
+    its plain version; its backward (fp32) against autograd through the
+    plain version."""
     import torch
-    from stp3_tpu_torch.models.stp3 import lift_depth_context
-    from stp3_tpu_torch.ops.kernels import bev_splat as K1
     from stp3_tpu_torch.ops.kernels import lift_splat as K4
     feat, logits, ranks, rays, ncells = k4_inputs(cfg, device)
     f, p = ranks.shape
@@ -981,32 +522,10 @@ def phase_k4(cfg, device):
     torch.cuda.synchronize()
     err = (acc_k - acc_p).abs().max().item()
     ok = torch.allclose(acc_k, acc_p, rtol=1e-4, atol=1e-3)
-    # the timed window: zeroing the (F, ncells, C) fp32 sums, the kernel and
-    # the cast of the sums to bf16
-    ms = device_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
-    call_ms = time_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells))
-    flush = torch.empty(32 * 2 ** 20, device=device)          # 128 MB of fp32
-    cold = cold_ms(lambda: K4.lift_splat_frames(ctx, dp, ranks, rays, ncells), flush)
-    del flush
-    plain_ms = device_ms(lambda: K4.lift_splat_plain(ctx, dp, ranks, rays, ncells))
-    # from the same encoder outputs: softmax + K4, against the lift + K1
-    fused_ms = device_ms(lambda: K4.lift_splat_frames(ctx, depth_probs(logits), ranks, rays,
-                                                      ncells))
-    materialised_ms = device_ms(lambda: K1.bev_splat(
-        lift_depth_context(feat, logits).reshape(f, -1, c), ranks, ncells))
     valid = (ranks < ncells).sum().item()
-    bound_ms, bound_by, n_bytes = k4_bound(ctx, dp, ranks, rays, ncells)
-    rows = K1.atomic_rows_per_landed_point(ranks, ncells, K4.TILE)
-    ptxas = ' | '.join(ptxas_summary(K4.build()['log']))
     say(f'[K4] lift_splat F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16, invalid share '
         f'{1 - valid / (f * p):.4f}: max_abs_err {err:.3e} (rtol 1e-4, atol 1e-3) '
-        f'{"OK" if ok else "MISMATCH"}; kernel {ms:.4f} ms (zeroing the fp32 sums, the kernel, '
-        f'the cast to bf16; {call_ms:.4f} ms a call with the host\'s issue time, {cold:.4f} ms '
-        f'with the L2 evicted), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, '
-        f'{n_bytes / 1e6:.1f} MB), bound_share {bound_ms / ms:.3f}; atomic rows per landed '
-        f'point {rows:.4f} (tile {K4.TILE}); from the encoder outputs: softmax + K4 '
-        f'{fused_ms:.4f} ms, lift + K1 (materialised) {materialised_ms:.4f} ms; no single '
-        f'PyTorch call computes this function; ptxas: {ptxas}')
+        f'{"OK" if ok else "MISMATCH"}')
     if not ok:
         fail('K4 disagrees with its plain version')
 
@@ -1032,38 +551,7 @@ def phase_k4(cfg, device):
         f'plain version within rtol 1e-4, atol 1e-4: d ctx max_abs_err {errs[0]:.3e}, d dp '
         f'{errs[1]:.3e}')
     return dict(shape=f'F={f} R={ctx.shape[1]} P={p} C={c} ncells={ncells} bf16',
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, bound_share=bound_ms / ms, call_ms=call_ms,
-                cold_ms=cold, atomic_rows_per_landed_point=rows,
-                materialised_ms=materialised_ms, fused_path_ms=fused_ms)
-
-
-def to_torch(arrays, device, dtype=None):
-    import torch
-    return [torch.as_tensor(a, device=device) if dtype is None or not np.issubdtype(
-        a.dtype, np.floating) else torch.as_tensor(a, device=device).to(dtype) for a in arrays]
-
-
-def build_model(cfg, fused: bool = False):
-    import torch
-    from stp3_tpu_torch.layers.base import init_parameters
-    from stp3_tpu_torch.models.stp3 import STP3
-    model = STP3(dataclasses.replace(model_cfg(cfg), fused_lift_splat=fused))
-    init_parameters(model, torch.Generator().manual_seed(SEED))
-    return model.eval()
-
-
-def plan_step(model, image, k, e, ego, trajs, gt, commands, target):
-    """bench.py's timed step: forward, occupancy, plan."""
-    import torch
-    rf = model.cfg.receptive_field
-    out = model(image, k, e, ego)
-    seg = out['segmentation'].argmax(-1)
-    ped = out['pedestrian'].argmax(-1)
-    occupancy = torch.logical_or(seg, ped).float()
-    _, traj = model.plan(out['cam_front'], trajs, gt, out['costvolume'][:, rf:],
-                         occupancy[:, rf:], out['hdmap'], commands, target)
-    return out, traj
+                max_abs_err=err)
 
 
 def close(name, got, want, atol=2e-3, rtol=1e-3):
@@ -1126,7 +614,7 @@ def phase_parity(tiny_cfg, device):
         f'{len(errs)} outputs within atol 2e-3 rtol 1e-3; worst {worst} {errs[worst]:.3e}')
 
 
-def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
+def phase_flagship(cfg, device, fused: bool = False, tag: str = ''):
     """The serving forward + plan at full width under the bf16 policy;
     ``fused``: with the fused lift + splat (K4 in place of the lift and
     K1). Returns the launches of one step, the model and the step's
@@ -1134,7 +622,6 @@ def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
     import torch
     from stp3_tpu_torch.utils.precision import policy_dtype
     tag = f'[{tag}]' if tag else '[fused]' if fused else '[flagship]'
-    t0 = time.perf_counter()
     dt = policy_dtype(cfg)
     model = build_model(cfg, fused).to(device=device, dtype=dt)
     n_params = sum(p.numel() for p in model.parameters())
@@ -1144,7 +631,7 @@ def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
     trajs, gt, target = to_torch((ex['trajs'], ex['gt_trajs'], ex['target_points']),
                                  device, dt)
     commands, = to_torch((ex['commands'],), device)
-    say(f'{tag} {n_params} params, {dt}, built in {time.perf_counter() - t0:.1f} s')
+    say(f'{tag} {n_params} params, {dt}')
     with torch.inference_mode():
         reset_launches()
         out, traj = plan_step(model, image, k, e, ego, trajs, gt, commands, target)
@@ -1163,121 +650,10 @@ def phase_flagship(cfg, device, card, fused: bool = False, tag: str = ''):
         say(f'{tag} outputs finite: {shapes}; traj {tuple(traj.shape)} '
             f'{traj[0, :, :2].float().cpu().numpy().round(3).tolist()}')
         say(f'{tag} launches per forward: {launches}')
-        torch.cuda.reset_peak_memory_stats()
-
-        def step():
-            return plan_step(model, image, k, e, ego, trajs, gt, commands, target)
-
-        p50 = time_ms(step, warmup=3, iters=20)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        say(f'{tag} forward+plan p50 {p50:.2f} ms (median of 20, CUDA events), '
-            f'peak memory {peak:.2f} GiB, on {card}')
-        if '--profile' in sys.argv[1:]:
-            profile_window(lambda i: step(), f'{tag} forward+plan', card)
-        if fused:
-            fused_vs_materialised(model, step, card)
     return launches, model, (image, k, e, ego, trajs, gt, commands, target)
 
 
-TURNS = (False, True, True, False, False, True, True, False)   # fused_lift_splat, in turns
-
-
-def fused_vs_materialised(model, step, card) -> None:
-    """[fused turns]: the serving step with the fused and the materialised
-    splat of the same weights, in ``TURNS`` (4 turns each, alternating),
-    p50 of 20 steps a turn. With --profile also, per turn: the host's time
-    to issue a step (from a drained device: the call's own time, then the
-    wait for the device), the card's SM clock and power while the p50 ran,
-    and a torch.profiler window of 3 steps (device events and time a step,
-    the device's busy share and largest idle gaps); then per variant the
-    kernels that take the most and the host ops whose time a step differs
-    most between the two."""
-    import torch
-    profiling = '--profile' in sys.argv[1:]
-    names = {False: 'materialised', True: 'fused'}
-    p50s = {False: [], True: []}
-    windows = {False: [], True: []}
-    for turn in TURNS:
-        model.cfg = dataclasses.replace(model.cfg, fused_lift_splat=turn)
-        if not profiling:
-            p50s[turn].append(time_ms(step, warmup=3, iters=20))
-            continue
-        sampler = smi_sampler()
-        try:
-            p50s[turn].append(time_ms(step, warmup=3, iters=20))
-        finally:
-            clock, power = smi_stop(sampler)
-        issue, tail = [], []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            issue.append((t1 - t0) * 1e3)
-            tail.append((time.perf_counter() - t1) * 1e3)
-        window = profile_steps(lambda i: step())
-        windows[turn].append(window)
-        say(f'[fused turns] {names[turn]}: p50 {p50s[turn][-1]:.2f} ms; host issue p50 '
-            f'{np.median(issue):.2f} ms, then the device {np.median(tail):.2f} ms; SM clock '
-            f'{clock} MHz, power {power} W (medians while the p50 ran); profiled: '
-            f'{window["events"]:.0f} device events, {window["busy_ms"]:.2f} ms device time and '
-            f'{window["wall_ms"]:.2f} ms wall a step (busy '
-            f'{window["busy_ms"] / window["wall_ms"]:.3f}), '
-            f'largest idle gaps {", ".join(f"{g:.2f}" for g in window["gaps"])} ms')
-    say(f'[fused turns] in turns ({", ".join(names[t] for t in TURNS)}; p50 of 20 steps each): '
-        f'materialised {" / ".join(f"{t:.2f}" for t in p50s[False])} ms (median '
-        f'{np.median(p50s[False]):.2f}), fused {" / ".join(f"{t:.2f}" for t in p50s[True])} ms '
-        f'(median {np.median(p50s[True]):.2f}), on {card}')
-    if not profiling:
-        return
-    per_step = {}
-    for turn in (False, True):
-        kernels, host = {}, {}
-        for w in windows[turn]:
-            for table, part in ((kernels, w['kernels']), (host, w['host'])):
-                for name, (ms, k) in part.items():
-                    t, n = table.get(name, (0.0, 0.0))
-                    table[name] = (t + ms / len(windows[turn]), n + k / len(windows[turn]))
-        per_step[turn] = host
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-        say(f'[fused turns] {names[turn]}, device kernels a step (mean of the turns): '
-            + '; '.join(f'{ms:.3f} ms x{k:.0f} {name[:70]}' for name, (ms, k) in top))
-    ops = set(per_step[False]) | set(per_step[True])
-
-    def diff(name):
-        return per_step[True].get(name, (0.0, 0))[0] - per_step[False].get(name, (0.0, 0))[0]
-
-    say('[fused turns] host ops whose self time a step differs most (fused - materialised; '
-        'ms a step, calls a step): ' + '; '.join(
-            f'{name[:50]} {diff(name):+.3f} ms ({per_step[False].get(name, (0, 0))[1]:.0f} -> '
-            f'{per_step[True].get(name, (0, 0))[1]:.0f} calls)'
-            for name in sorted(ops, key=lambda n: -abs(diff(n)))[:12]))
-
-
-def smi_sampler():
-    """nvidia-smi sampling the SM clock and power draw every 100 ms."""
-    return subprocess.Popen(['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
-                             '--format=csv,noheader,nounits', '-lms', '100'],
-                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-
-
-def smi_stop(proc):
-    """Stop an ``smi_sampler``; (median SM clock, median power) of its samples."""
-    proc.terminate()
-    out, _ = proc.communicate(timeout=30)
-    rows = [line.split(',') for line in out.splitlines() if line.count(',') == 1]
-    try:
-        vals = np.array([[float(a), float(b)] for a, b in rows])
-    except ValueError:
-        return 'unread', 'unread'
-    if not len(vals):
-        return 'unread', 'unread'
-    clock, power = np.median(vals, 0)
-    return f'{clock:.0f}', f'{power:.1f}'
-
-
-def phase_fused(cfg, device, card):
+def phase_fused(cfg, device):
     """[fused]: the fp32 BEV features of the fused (K4) and materialised
     (lift, then K1) paths of one seeded full-width model, then the fused
     forward + plan under the bf16 policy. Returns ``phase_flagship``'s."""
@@ -1300,23 +676,13 @@ def phase_fused(cfg, device, card):
         fail('fused and materialised BEV features differ')
     del model, got, want
     free_card()
-    return phase_flagship(cfg, device, card, fused=True)
+    return phase_flagship(cfg, device, fused=True)
 
 
-CAMS = ('rgb', 'rgb_left', 'rgb_right', 'rgb_rear')
 AGENT_MODES = (('full', dict(incremental=False)),
                ('incremental', dict(incremental=True, static_geometry=False)),
                ('static', dict(incremental=True, static_geometry=True)))
 HEADS = ('segmentation', 'pedestrian', 'hdmap', 'costvolume')
-
-
-def recorded_ticks(n: int):
-    """n seeded CARLA sensor ticks: uint8 300x400 frames of the four
-    cameras, the GPS 2 m further each tick, heading 0."""
-    rng = np.random.RandomState(SEED)
-    for t in range(n):
-        yield ({key: rng.randint(0, 256, (300, 400, 3), np.uint8) for key in CAMS},
-               np.array([2.0 * t, 0.0]), 0.0)
 
 
 def selected(model, plan_args):
@@ -1338,25 +704,21 @@ def phase_agent(device, card):
     """[agent]: the CARLA Planning stage at full width, seeded fp32 weights:
     the serving methods against the full forward, then AgentCore's three
     tick modes. Returns (K1's numbers at the agent's splat, the launches in
-    each mode's tick graph, each mode's plan_step p50 in ms, the model, the
-    three cores by mode)."""
+    each mode's tick graph, the model, the three cores by mode)."""
     import torch
     from stp3_tpu_torch.datas.carla_data import carla_cam_rig, scale_and_crop_image
     from stp3_tpu_torch.deploy.agent_core import AgentCore
-    from stp3_tpu_torch.models.stp3 import context_depth_rays, lift_depth_context
-    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks, project_to_birds_eye_view
-    from stp3_tpu_torch.ops.static_splat import build_column_splat_plan, column_splat
+    from stp3_tpu_torch.ops.bev_pool import prewarped_ranks
+    from stp3_tpu_torch.ops.static_splat import build_column_splat_plan
     from stp3_tpu_torch.utils import sampler
     from stp3_tpu_torch.utils.network import prepare_image
     cfg = carla_planning_cfg()
-    t0 = time.perf_counter()
     model = build_model(cfg).to(device)
     mc, rf = model.cfg, cfg.TIME_RECEPTIVE_FIELD
     say(f'[agent] CARLA Planning stage: {sum(p.numel() for p in model.parameters())} fp32 '
         f'params, {len(cfg.IMAGE.NAMES)} cameras at {tuple(mc.final_dim)}, BEV {mc.bev_size} at '
         f'{mc.x_bound[2]} m, D={mc.depth_channels}, rf {rf}, {mc.n_future} future frames, '
-        f'{mc.sample_num} candidates, GRU {mc.gru_state_size}; built in '
-        f'{time.perf_counter() - t0:.1f} s')
+        f'{mc.sample_num} candidates, GRU {mc.gru_state_size}')
 
     # K1 at the agent's dynamic single-frame splat: the CARLA rig, F=1
     geometry, ego, (res, start, dim) = rig_geometry(cfg, device, carla=True)
@@ -1365,11 +727,9 @@ def phase_agent(device, card):
 
     # the serving methods against the full forward at zero ego-motion
     extr, intr = carla_cam_rig(mc.final_dim)
-    t0 = time.perf_counter()
     arrays = build_column_splat_plan(model.frustum, intr, extr, model.bev_resolution,
                                      model.bev_start_position,
                                      model.bev_dimension).device_arrays(device)
-    plan_s = time.perf_counter() - t0
     crop = mc.final_dim[0]
     frames = np.stack([np.stack([scale_and_crop_image(fr[key], 1.0, crop) for key in CAMS])
                        for fr, _, _ in recorded_ticks(rf)])[None]        # (1, rf, 4, H, W, 3)
@@ -1387,8 +747,8 @@ def phase_agent(device, card):
         err = (bev_s - bev_d).abs().max().item()
         if not torch.allclose(bev_s, bev_d, rtol=1e-4, atol=1e-3):
             fail(f'static and dynamic single-frame splats differ: max_abs_err {err:.3e}')
-        say(f'[agent] single-frame splat {tuple(bev_d.shape)} fp32, static (column plan, built '
-            f'in {plan_s:.2f} s, mask {tuple(arrays["mask"].shape)}) vs dynamic (K1): max_abs_err '
+        say(f'[agent] single-frame splat {tuple(bev_d.shape)} fp32, static (column plan, '
+            f'mask {tuple(arrays["mask"].shape)}) vs dynamic (K1): max_abs_err '
             f'{err:.3e} of max {bev_d.abs().max().item():.3e} (rtol 1e-4, atol 1e-3) OK')
         out_f = model(images, k, e, ego0)
         args_f = serve_plan_args(model, out_f, trajs, commands, target)
@@ -1424,75 +784,41 @@ def phase_agent(device, card):
             if pick == pick_f and not torch.allclose(traj, traj_f, rtol=1e-4, atol=1e-4):
                 fail(f'{name} tick trajectory differs from the full forward\'s with the same '
                      f'selected candidate')
-        # the single-frame splat alone, from the encoder's outputs: the lift
-        # and K1 (dynamic) against the column plan (static)
-        feat, depth = model.encode(images[:, -1].reshape(-1, *images.shape[3:]))
-        feat = feat.reshape(1, -1, *feat.shape[1:])
-        depth5 = depth.reshape(1, -1, *depth.shape[1:])
-        zero = torch.zeros(1, 1, 6, device=device)
-        ctx, dp = context_depth_rays(mc, feat, depth)
-        dyn_ms = time_ms(lambda: project_to_birds_eye_view(
-            lift_depth_context(feat, depth5)[:, None], geometry[:, -1:], zero, res, start, dim))
-        sta_ms = time_ms(lambda: column_splat(ctx, dp, arrays, (
-            feat.shape[1], feat.shape[2], feat.shape[3], mc.depth_channels, mc.bev_dimension)))
-        say(f'[agent] single-frame splat from the encoder outputs, fp32: lift + K1 {dyn_ms:.3f} '
-            f'ms, column plan (mask product, context product, sorted index_add_) {sta_ms:.3f} ms '
-            f'(CUDA events, median of 20)')
     del out_f, served, cache
 
-    # the three tick modes through AgentCore: 2 checked ticks, then 20 timed;
-    # each tick replays the compiled calls captured in the core's warm-up
-    per_tick, plan_p50, n_timed, cores = {}, {}, 20, {}
+    # the three tick modes through AgentCore: 2 checked ticks, then 20 whose
+    # launches are counted; each tick replays the compiled calls captured in
+    # the core's warm-up
+    per_tick, n_counted, cores = {}, 20, {}
     for mode, kw in AGENT_MODES:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         core = cores[mode] = AgentCore(cfg, model, device=device, **kw)
-        setup_s = time.perf_counter() - t0
-        controls, push_ms, plan_ms, sample_ms = [], [], [], []
-        for t, (frame, gps, theta) in enumerate(recorded_ticks(rf + 3 + n_timed)):
-            t0 = time.perf_counter()
+        controls = []
+        for t, (frame, gps, theta) in enumerate(recorded_ticks(rf + 3 + n_counted)):
             core.push_frame(frame, gps, theta)
-            push_ms.append((time.perf_counter() - t0) * 1e3)
             if not core.warmed_up:
                 continue
             np.random.seed(SEED + t)              # the sampler draws from the module RNG
             if len(controls) == 2:
                 reset_launches()
-            t0 = time.perf_counter()
             controls.append(core.plan_step(3.0, 4, np.array([0.0, 5.0])))
-            plan_ms.append((time.perf_counter() - t0) * 1e3)
         launches = read_launches()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        for _ in range(n_timed):                  # the sampler alone: host work of a tick
-            t0 = time.perf_counter()
-            sampler.sample_trajectories(3.0, 0.0, mc.n_future, mc.sample_num)
-            sample_ms.append((time.perf_counter() - t0) * 1e3)
-        if len(plan_ms) != 2 + n_timed:
-            fail(f'agent {mode}: {len(plan_ms)} planned ticks, expected {2 + n_timed}')
+        if len(controls) != 2 + n_counted:
+            fail(f'agent {mode}: {len(controls)} planned ticks, expected {2 + n_counted}')
         for steer, throttle, brake, _ in controls:
             if not (np.isfinite([steer, throttle]).all() and -1.0 <= steer <= 1.0
                     and 0.0 <= throttle <= 0.75 and isinstance(brake, bool)):
                 fail(f'agent {mode}: control out of range: {(steer, throttle, brake)}')
-        # no wrapper ran in the timed ticks: they replayed the graphs, whose
+        # no wrapper ran in the counted ticks: they replayed the graphs, whose
         # kernels the capture counted
         expect_launches(f'agent {mode} ticks (replays)', launches)
         per_tick[mode] = tick_graph(core).launches_per_call
         expect_launches(f'agent {mode} tick graph', per_tick[mode],
                         **({} if mode == 'static' else {'bev_splat': 1}))
-        plan_p50[mode] = float(np.median(plan_ms[2:]))
         first = [tuple(round(float(v), 4) for v in c[:3]) for c in controls[:2]]
-        say(f'[agent] {mode}: set-up (incl. warm-up{", column plan" if mode == "static" else ""}) '
-            f'{setup_s:.2f} s; first two planned ticks (steer, throttle, brake) {first}; '
-            f'plan_step p50 {float(np.median(plan_ms[2:])):.2f} ms (median of {n_timed} ticks, '
-            f'wall clock, host included; spread {min(plan_ms[2:]):.2f}-{max(plan_ms[2:]):.2f}), '
-            f'push_frame (crop) p50 {float(np.median(push_ms)):.3f} ms, of which host work: '
-            f'trajectory sampling p50 {float(np.median(sample_ms)):.2f} ms; launches per tick '
-            f'(in its graph) { {n: v for n, v in per_tick[mode].items() if v}}; peak memory '
-            f'{peak:.2f} GiB; on {card}')
-        if '--profile' in sys.argv[1:]:
-            profile_ticks(core, mode, card)
-    return k1, per_tick, plan_p50, model, cores
+        say(f'[agent] {mode}: first two planned ticks (steer, throttle, brake) {first}; '
+            f'{len(controls)} planned ticks in range, none launching a wrapper; launches per '
+            f'tick (in its graph) { {n: v for n, v in per_tick[mode].items() if v}}; on {card}')
+    return k1, per_tick, model, cores
 
 
 def tick_graph(core):
@@ -1500,10 +826,9 @@ def tick_graph(core):
     return core._serve if core.incremental else core._infer
 
 
-# [graphs]: each compiled call against the eager one, in turns
-GRAPH_TURNS = (False, True, True, False, False, True, True, False)   # compiled, in turns
-GRAPH_CALLS = 6                          # calls a turn: 24 a side
-GRAPH_LIMIT = 2.0                        # graphed-vs-eager within this x eager-vs-eager
+# [graphs]: each compiled call against the eager one, graphed-vs-eager
+# within this multiple of eager-vs-eager
+GRAPH_LIMIT = 2.0
 
 
 def max_dist(got: dict, want: dict) -> dict:
@@ -1516,8 +841,8 @@ def compare_compiled(name: str, eager, call, args, pick, card, **want) -> dict:
     ``torch.cuda.set_sync_debug_mode('error')`` (after one that makes the
     per-device constants), the launches of an eager step and in the graph
     (``want``), none on a replay, the outputs ``pick`` selects graphed vs
-    eager within GRAPH_LIMIT x eager vs eager, then both wall p50s in
-    GRAPH_TURNS and the compiled call's device time."""
+    eager within GRAPH_LIMIT x eager vs eager. Returns the launches in the
+    graph."""
     import torch
     eager(*args)
     torch.cuda.synchronize()
@@ -1541,28 +866,12 @@ def compare_compiled(name: str, eager, call, args, pick, card, **want) -> dict:
     if any(d_graph[key] > GRAPH_LIMIT * d_eager[key] for key in first):
         fail(f'[graphs] {name}: graphed vs eager {d_graph} exceeds {GRAPH_LIMIT} x eager vs '
              f'eager {d_eager}')
-    samples = {False: [], True: []}
-    for compiled in GRAPH_TURNS:
-        fn = call if compiled else eager
-        samples[compiled] += wall_samples(lambda: fn(*args), GRAPH_CALLS)
-    device = time_ms(lambda: call(*args), warmup=1, iters=10)
-    p50 = {k: float(np.median(v)) for k, v in samples.items()}
-    numbers = dict(eager_ms=p50[False], graphed_ms=p50[True], device_ms=device,
-                   busy_eager=device / p50[False], busy_graphed=device / p50[True],
-                   capture_s=call.capture_seconds, pool_mib=call.pool_bytes / 2 ** 20,
-                   launches={k: v for k, v in call.launches_per_call.items() if v},
-                   graphed_vs_eager=d_graph, eager_vs_eager=d_eager)
-    say(f'[graphs] {name}: p50 eager {p50[False]:.2f} ms, graphed {p50[True]:.2f} ms (wall, '
-        f'{len(samples[True])} calls a side in {len(GRAPH_TURNS)} alternating turns; spread '
-        f'{min(samples[False]):.2f}-{max(samples[False]):.2f} / '
-        f'{min(samples[True]):.2f}-{max(samples[True]):.2f}); the compiled call\'s device time '
-        f'{device:.2f} ms (CUDA events), busy {numbers["busy_eager"]:.3f} eager / '
-        f'{numbers["busy_graphed"]:.3f} graphed; capture {call.capture_seconds:.2f} s (with '
-        f'{call.captures} graph(s)), pool +{numbers["pool_mib"]:.1f} MiB; launches in the graph '
-        f'{numbers["launches"]} = eager; graphed vs eager '
+    launches = {k: v for k, v in call.launches_per_call.items() if v}
+    say(f'[graphs] {name}: {call.captures} graph(s); launches in the graph {launches} = eager, '
+        f'none on a replay; graphed vs eager '
         f'{ {k: float(f"{v:.3e}") for k, v in d_graph.items()}} within {GRAPH_LIMIT} x eager vs '
         f'eager { {k: float(f"{v:.3e}") for k, v in d_eager.items()}}; on {card}')
-    return numbers
+    return launches
 
 
 def recompiles_and_refuses(call, eager, img, model, card) -> None:
@@ -1604,12 +913,11 @@ def phase_graphs(flagship, agent_model, cores, card) -> dict:
     model: the flagship step (bench.py's forward + occupancy + plan, bf16)
     materialised and fused and STP3.serve_step, on the [fused] phase's
     model; AgentCore's tick in its three modes (CARLA Planning, fp32) on
-    the [agent] phase's cores. Returns each path's numbers."""
+    the [agent] phase's cores. Returns each path's launches in its graph."""
     import torch
     from stp3_tpu_torch.datas.carla_data import scale_and_crop_image
     from stp3_tpu_torch.utils import graphs, sampler
     from stp3_tpu_torch.utils.network import prepare_image
-    t_phase = time.perf_counter()
     model, (image, k, e, ego, trajs, gt, commands, target) = flagship
     cfgs = {fused: dataclasses.replace(model.cfg, fused_lift_splat=fused)
             for fused in (False, True)}
@@ -1703,93 +1011,7 @@ def phase_graphs(flagship, agent_model, cores, card) -> dict:
                 (frames[:, -1], tick[0], cache, *tick[1:]), lambda r: compared(*r), card, **want)
         recompiles_and_refuses(cores['static']._splat, splat_static, frames[:, -1], agent_model,
                                card)
-    say(f'[graphs] phase done in {time.perf_counter() - t_phase:.1f} s; on {card}')
     return results
-
-
-def profile_steps(run, n: int = 3, n_gaps: int = 3) -> dict:
-    """torch.profiler over ``n`` calls of ``run(i)``, a call at a time:
-    wall time, device events and summed device time, the device's
-    ``n_gaps`` largest idle gaps (ms), and by name the device kernels' and
-    the host ops' self time (ms) and counts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            run(i)
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    gaps, end = [], None
-    for e in kernels:
-        if end is not None and e.time_range.start > end:
-            gaps.append((e.time_range.start - end) / 1e3)
-        end = e.time_range.end if end is None else max(end, e.time_range.end)
-    by_name = {}
-    for e in kernels:
-        t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3 / n, k + 1 / n)
-    host = {a.key: (a.self_cpu_time_total / 1e3 / n, a.count / n) for a in prof.key_averages()
-            if a.device_type == torch.autograd.DeviceType.CPU}
-    return dict(wall_ms=wall, events=len(kernels) / n,
-                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n,
-                gaps=sorted(gaps, reverse=True)[:n_gaps], kernels=by_name, host=host)
-
-
-def profile_window(run, what: str, card, n: int = 3, top: int = 6) -> None:
-    """Where the time of ``n`` calls of ``run(i)`` goes (--profile):
-    torch.profiler's device events and summed device time per call beside
-    the wall time per call, and the kernels that take the most."""
-    w = profile_steps(run, n)
-    say(f'[profile] {what}: {n} under torch.profiler, {w["wall_ms"]:.2f} ms of wall time, '
-        f'{w["events"]:.0f} device events and {w["busy_ms"]:.2f} ms of summed device time each '
-        f'(device busy {w["busy_ms"] / w["wall_ms"]:.2f} of the wall time); on {card}')
-    for name, (ms, k) in sorted(w['kernels'].items(), key=lambda kv: -kv[1][0])[:top]:
-        say(f'[profile]   {ms:8.2f} ms each {k:6.0f} calls each  {name[:110]}')
-
-
-def profile_ticks(core, mode: str, card, ticks: int = 3):
-    """Where an agent tick's time goes (--profile): ``ticks`` planned ticks."""
-    frames = list(recorded_ticks(ticks))
-
-    def tick(i):
-        core.push_frame(*frames[i])
-        core.plan_step(3.0, 4, np.array([0.0, 5.0]))
-
-    profile_window(tick, f'agent {mode} tick', card, ticks)
-
-
-def synthetic_batches(cfg, n_batches: int, device):
-    """``n_batches`` batches of cfg.BATCHSIZE synthetic samples, on the device."""
-    from stp3_tpu_torch.datas.synthetic import SyntheticDataset, collate
-    from stp3_tpu_torch.training.trainer import batch_to_device
-    b = int(cfg.BATCHSIZE)
-    ds = SyntheticDataset(cfg, n_samples=b * n_batches, seed=SEED)
-    return [batch_to_device(collate([ds[j] for j in range(i * b, (i + 1) * b)]), device)
-            for i in range(n_batches)]
-
-
-def step_grads(trainer, batch, noise, outputs=None):
-    """(loss dict, {name: gradient}) of one step without the optimizer;
-    ``outputs``, a list, receives every module's output of the forward."""
-    import torch
-    keep = (lambda m, i, o: outputs.append(o.detach().double().cpu())
-            if isinstance(o, torch.Tensor) else None)
-    hooks = [m.register_forward_hook(keep) for m in trainer.model.modules()] if (
-        outputs is not None) else []
-    trainer.optimizer.zero_grad(set_to_none=True)
-    total, loss = trainer.loss_fn(batch, noise=noise, dropout=False)
-    n_forward = len(outputs or ())
-    total.backward()
-    for hook in hooks:
-        hook.remove()
-    if outputs is not None:
-        del outputs[n_forward:]           # REMAT's recomputation in the backward
-    return ({k: v.item() for k, v in loss.items()},
-            {n: p.grad.double().cpu() for n, p in trainer.model.named_parameters()})
 
 
 def phase_train_parity(tiny_cfg, device):
@@ -1846,28 +1068,24 @@ def phase_train_parity(tiny_cfg, device):
         f'and 1e-3 in the median. ' + '; '.join(parts))
 
 
-def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
+def phase_train(cfg, device, card, tag: str = 'train', **want):
     """A stage's training at full width and batch cfg.BATCHSIZE from a
     seeded init on synthetic batches, through the compiled train step:
     its WARMUP_CALLS eager steps, the step that captures the gradients'
-    and the update's CUDA graphs, then ``timed`` timed steps replaying
-    them. The gradients' graph holds the launches in ``want`` (by default
-    K1, K3 and K2 twice), the update's none, a replay moves no counter,
-    and the counters of the whole run are the eager and capturing steps';
-    loss terms finite, most parameter tensors changed; the step p50,
-    spread, samples/s, peak memory and the graphs' pool. Returns (trainer,
+    and the update's CUDA graphs, then a step replaying them. The
+    gradients' graph holds the launches in ``want`` (by default K1, K3 and
+    K2 twice), the update's none, the replay moves no counter, and the
+    counters of the whole run are the eager and capturing steps'; loss
+    terms finite, most parameter tensors changed. Returns (trainer,
     batches, the run's launches)."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
     want = want or dict(bev_splat=1, gather_rows=1, convnext_mlp=2)
-    t0 = time.perf_counter()
     trainer = Trainer(cfg, device=device, seed=SEED)
     n_params = sum(p.numel() for p in trainer.model.parameters())
     batches = synthetic_batches(cfg, 2, device)
-    b = int(cfg.BATCHSIZE)
     say(f'[{tag}] {cfg.TAG}: {n_params} fp32 master params, compute {trainer.compute_dtype}, '
-        f'MODEL.NORM {cfg.MODEL.NORM!r}, REMAT {cfg.MODEL.REMAT!r}, batch {b}; built with 2 '
-        f'synthetic batches in {time.perf_counter() - t0:.1f} s')
+        f'MODEL.NORM {cfg.MODEL.NORM!r}, REMAT {cfg.MODEL.REMAT!r}, batch {int(cfg.BATCHSIZE)}')
     before = [p.detach().clone() for p in trainer.model.parameters()]
 
     reset_launches()
@@ -1881,22 +1099,9 @@ def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
     grads = trainer.graphs['gradients']
     expect_no_launch_on_replay(f'[{tag}] a replayed train step',
                                lambda: losses.append(trainer.train_step(batches[1])))
-    say(f'[{tag}] the compiled step: {len(losses) - 2} eager steps, then the CUDA graphs '
-        f'captured in {grads.capture_seconds + trainer.graphs["update"].capture_seconds:.2f} s '
-        f'(pool {grads.pool_bytes / 2 ** 20:.0f} MiB); launches in the gradients\' graph '
-        f'{grads.launches_per_call}, none in the update\'s, none counted on a replay; the '
-        f'run\'s counters {launches}')
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(timed):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses.append(trainer.train_step(batches[i % 2]))
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f'[{tag}] the compiled step: {len(losses) - 2} eager steps, then the CUDA graphs; '
+        f'launches in the gradients\' graph {grads.launches_per_call}, none in the update\'s, '
+        f'none counted on a replay; the run\'s counters {launches}')
     for step, loss in enumerate(losses):
         bad = [k for k, v in loss.items() if not torch.isfinite(v).all()]
         if bad:
@@ -1905,21 +1110,16 @@ def phase_train(cfg, device, card, tag: str = 'train', timed: int = 10, **want):
     if changed < len(before) // 2:
         fail(f'{tag}: only {changed} of {len(before)} parameter tensors changed in '
              f'{len(losses)} steps')
-    p50 = float(np.median(times))
     first, last = losses[0], losses[-1]
     say(f'[{tag}] {len(losses)} steps finite; {changed} of {len(before)} parameter tensors '
         f'changed; total loss {first["total"].item():.4f} -> {last["total"].item():.4f}; terms '
-        f'of the last step {({k: round(v.item(), 4) for k, v in last.items()})}')
-    say(f'[{tag}] replayed step p50 {p50:.2f} ms (median of {timed}, CUDA events; spread '
-        f'{min(times):.2f}-{max(times):.2f} ms), {b / p50 * 1e3:.3f} samples/s, peak memory '
-        f'allocated in the replays {peak:.2f} GiB, reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} '
-        f'GiB, on {card}')
+        f'of the last step {({k: round(v.item(), 4) for k, v in last.items()})}; on {card}')
     return trainer, batches, launches
 
 
-# [train graphs]: pairs of steps in alternating turns, and the limit of
-# graphed-vs-eager against eager-vs-eager (GRAPH_LIMIT, as [graphs]')
-TRAIN_GRAPH_TURNS = 4
+# [train graphs]: steps after the capture on each trainer, and the floor
+# of the limit of graphed-vs-eager (GRAPH_LIMIT x eager-vs-eager)
+TRAIN_GRAPH_STEPS = 8
 TRAIN_GRAPH_FLOOR = 1e-6
 
 
@@ -1944,20 +1144,6 @@ def train_distance(got: dict, want: dict) -> dict:
     return {'loss': loss, 'median': float(np.median(errs)), 'worst': max(errs)}
 
 
-def timed_wall(fn):
-    """(wall ms from a drained device to a drained device, the call's CUDA
-    event ms, fn's result)."""
-    import torch
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
-    start.record()
-    out = fn()
-    end.record()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end), out
-
-
 def phase_train_graphs(cfg, device, card) -> dict:
     """[train graphs]: the Planning stage at full width and batch 2 (bf16
     policy over fp32 masters, REMAT 'encoder', dropout on, the latent from
@@ -1965,21 +1151,17 @@ def phase_train_graphs(cfg, device, card) -> dict:
     eager ``compute_gradients`` + ``apply_gradients`` of a twin trainer of
     the same seed and of two more twins (eager against eager: the
     yardstick, the larger of their distances from the first twin), all
-    taking the same batches. The compiled trainer's
-    eager warm-up steps and the step that captures its two graphs; K1 and
-    K3 once and K2 twice in the gradients' graph, nothing in the update's,
-    no counter moved by a replay; then TRAIN_GRAPH_TURNS turns of two
-    steps a side, alternating which side goes first: the wall p50 of
-    each, the graphed step's CUDA-event time and busy share (event /
-    wall), the twins' generators where the compiled trainer's is (the
-    replays draw what eager steps draw), and the loss terms of every step
-    and the parameters' updates graphed vs eager within GRAPH_LIMIT x
-    eager vs eager (or TRAIN_GRAPH_FLOOR). Capture seconds, the pool's
-    MiB, peak memory. Then ``val_forward`` compiled against its eager body
-    at batch 2 and at a ragged batch of 1 (a second graph), within
-    GRAPH_LIMIT x eager vs eager, with both p50s. Last, an fp32 trainer's
-    capture: its pool (cuDNN's fp32 workspaces) and replayed p50. Returns
-    the compiled trainer's launches (the counters of its run)."""
+    taking the same batches. The compiled trainer's eager warm-up steps
+    and the step that captures its two graphs; K1 and K3 once and K2 twice
+    in the gradients' graph, nothing in the update's, no counter moved by
+    a replay; then TRAIN_GRAPH_STEPS steps on each trainer: the twins'
+    generators where the compiled trainer's is (the replays draw what
+    eager steps draw), and the loss terms of every step and the
+    parameters' updates graphed vs eager within GRAPH_LIMIT x eager vs
+    eager (or TRAIN_GRAPH_FLOOR). Then ``val_forward`` compiled against its
+    eager body at batch 2 and at a ragged batch of 1 (a second graph),
+    within GRAPH_LIMIT x eager vs eager. Last, an fp32 trainer's capture.
+    Returns the compiled trainer's launches (the counters of its run)."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
     batches = synthetic_batches(cfg, 2, device)
@@ -1988,7 +1170,6 @@ def phase_train_graphs(cfg, device, card) -> dict:
     twins = [Trainer(cfg, device=device, seed=SEED) for _ in names]
     start = [p.detach().clone() for p in graphed.model.parameters()]
     runs = {name: {'loss': [], 'start': start} for name in ('graphed',) + names}
-    t_phase = time.perf_counter()
 
     def eager_step(trainer, batch):
         out = trainer.compute_gradients(batch)
@@ -1998,7 +1179,6 @@ def phase_train_graphs(cfg, device, card) -> dict:
     def record(name, loss):
         runs[name]['loss'].append({k: v.item() for k, v in loss.items()})
 
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     n = 0
     while not graphed.graphs['update'].captures:
@@ -2007,39 +1187,22 @@ def phase_train_graphs(cfg, device, card) -> dict:
         record('graphed', graphed.train_step(batches[n % 2]))
         n += 1
     launches = read_launches()
-    grads, update = graphed.graphs['gradients'], graphed.graphs['update']
+    grads = graphed.graphs['gradients']
     expect_train_graphs('[train graphs]', graphed, bev_splat=1, gather_rows=1, convnext_mlp=2)
     for name, twin in zip(names, twins):
         for i in range(n):
             record(name, eager_step(twin, batches[i % 2]))
     say(f'[train graphs] {cfg.TAG}, batch {cfg.BATCHSIZE}, {graphed.compute_dtype}: '
         f'{grads.eager_calls} eager warm-up steps, then the gradients\' and the update\'s '
-        f'CUDA graphs captured in {grads.capture_seconds:.2f} s and '
-        f'{update.capture_seconds:.2f} s (pool {grads.pool_bytes / 2 ** 20:.0f} MiB and '
-        f'{update.pool_bytes / 2 ** 20:.0f} MiB); launches in the gradients\' graph '
-        f'{grads.launches_per_call}, in the update\'s none; the run\'s counters {launches}')
-    wall = {'graphed': [], 'eager': []}
-    event = {'graphed': [], 'eager': []}
-    steps = [('graphed', graphed, lambda tr, b: tr.train_step(b)),
-             ('eager', twins[0], eager_step)]
-    for turn in range(TRAIN_GRAPH_TURNS):
-        for name, trainer, step in (steps if turn % 2 == 0 else steps[::-1]):
-            for i in range(2):
-                if name == 'graphed' and turn == 0 and i == 0:
-                    reset_launches()
-                w, e, loss = timed_wall(lambda: step(trainer, batches[i % 2]))
-                if name == 'graphed' and turn == 0 and i == 0:
-                    moved = {k: v for k, v in read_launches().items() if v}
-                    if moved:
-                        fail(f'[train graphs] a replayed step moved the counters {moved}')
-                wall[name].append(w)
-                event[name].append(e)
-                record(name, loss)
-        for name, twin in zip(names[1:], twins[1:]):
-            for i in range(2):
-                record(name, eager_step(twin, batches[i % 2]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+        f'CUDA graphs; launches in the gradients\' graph {grads.launches_per_call}, in the '
+        f'update\'s none; the run\'s counters {launches}')
+    expect_no_launch_on_replay('[train graphs] a replayed step',
+                               lambda: record('graphed', graphed.train_step(batches[0])))
+    for i in range(1, TRAIN_GRAPH_STEPS):
+        record('graphed', graphed.train_step(batches[i % 2]))
+    for name, twin in zip(names, twins):
+        for i in range(TRAIN_GRAPH_STEPS):
+            record(name, eager_step(twin, batches[i % 2]))
     for name, trainer in zip(('graphed',) + names, [graphed] + twins):
         runs[name]['params'] = [p.detach().clone() for p in trainer.model.parameters()]
     same_gen = all(torch.equal(graphed.generator.get_state(), t.generator.get_state())
@@ -2053,22 +1216,11 @@ def phase_train_graphs(cfg, device, card) -> dict:
     limit = {m: max(GRAPH_LIMIT * v, TRAIN_GRAPH_FLOOR) for m, v in yard.items()}
     bad = [k for run in runs.values() for loss in run['loss'] for k, v in loss.items()
            if not np.isfinite(v)]
-    p50 = {k: float(np.median(v)) for k, v in wall.items()}
-    ev50 = {k: float(np.median(v)) for k, v in event.items()}
-    say(f'[train graphs] {graphed.step} steps a trainer, {TRAIN_GRAPH_TURNS} turns of 2: wall '
-        f'p50 graphed {p50["graphed"]:.2f} ms (spread {min(wall["graphed"]):.2f}-'
-        f'{max(wall["graphed"]):.2f}), eager {p50["eager"]:.2f} ms (spread '
-        f'{min(wall["eager"]):.2f}-{max(wall["eager"]):.2f}), {p50["eager"] / p50["graphed"]:.3f}x; '
-        f'the graphed step\'s device time (CUDA events around its two replays) '
-        f'{ev50["graphed"]:.2f} ms, busy (device / wall) {ev50["graphed"] / p50["graphed"]:.4f}; '
-        f'the eager step\'s event span {ev50["eager"]:.2f} ms (its stream waits for the host\'s '
-        f'launches: not a device time); {cfg.BATCHSIZE / p50["graphed"] * 1e3:.3f} '
-        f'samples/s graphed; peak memory allocated {peak:.2f} GiB, reserved {reserved:.2f} GiB '
-        f'(four trainers); the generators equal after every step; on {card}')
-    say(f'[train graphs] graphed vs eager: loss terms rel {got["loss"]:.2e}, parameter updates '
+    say(f'[train graphs] {graphed.step} steps a trainer, the generators equal after every step; '
+        f'graphed vs eager: loss terms rel {got["loss"]:.2e}, parameter updates '
         f'median {got["median"]:.2e}, worst {got["worst"]:.2e}; eager vs eager (the yardstick): '
         f'{yard["loss"]:.2e}, {yard["median"]:.2e}, {yard["worst"]:.2e}; limit {GRAPH_LIMIT:g}x '
-        f'it or {TRAIN_GRAPH_FLOOR:g}')
+        f'it or {TRAIN_GRAPH_FLOOR:g}; on {card}')
     over = [m for m in got if got[m] > limit[m]]
     if bad or over:
         fail(f'[train graphs] loss terms not finite {bad[:3]} or beyond the limit {over}: '
@@ -2079,7 +1231,6 @@ def phase_train_graphs(cfg, device, card) -> dict:
     del graphed
     free_card()
     fp32_train_graph(cfg, device, batches, card)
-    say(f'[train graphs] the phase took {time.perf_counter() - t_phase:.1f} s')
     return launches
 
 
@@ -2087,16 +1238,14 @@ def val_graphs(trainer, batch, card) -> None:
     """``val_forward`` compiled (the graph ``validate`` replays) against its
     eager body, at the batch and at a ragged batch of its first row (a
     second graph): the heads and the plan within GRAPH_LIMIT x eager vs
-    eager (or TRAIN_GRAPH_FLOOR); K1 once and K2 twice in each graph; both
-    wall p50s in turns."""
-    import torch
+    eager (or TRAIN_GRAPH_FLOOR); K1 once and K2 twice in each graph."""
     call = trainer.graphs['val']
     keys = ('segmentation', 'pedestrian', 'hdmap', 'final_traj')
     ragged = {k: v[:1] for k, v in batch.items()}
     rows = []
     for name, b in (('batch', batch), ('ragged', ragged)):
         captures = call.captures
-        graphed, labels = trainer.val_forward(b)
+        graphed, _ = trainer.val_forward(b)
         eager = [trainer._val_forward(b)[0] for _ in range(2)]
         if call.captures != captures + 1:
             fail(f'[train graphs] val_forward at a {name} batch captured no new graph')
@@ -2108,48 +1257,24 @@ def val_graphs(trainer, batch, card) -> None:
         if got > max(GRAPH_LIMIT * yard, TRAIN_GRAPH_FLOOR):
             fail(f'[train graphs] val_forward ({name}) graphed vs eager {got:.3e}, eager vs '
                  f'eager {yard:.3e}')
-        times = {'graphed': [], 'eager': []}
-        for turn in range(4):
-            for side in (('graphed', 'eager') if turn % 2 == 0 else ('eager', 'graphed')):
-                fn = (lambda: trainer.val_forward(b)) if side == 'graphed' else (
-                    lambda: trainer._val_forward(b))
-                times[side] += wall_samples(fn, 2)
         rows.append(f'{name} (batch {b["image"].shape[0]}): graphed vs eager max abs '
-                    f'{got:.3e} (eager vs eager {yard:.3e}); wall p50 graphed '
-                    f'{np.median(times["graphed"]):.2f} ms, eager {np.median(times["eager"]):.2f} '
-                    f'ms (8 calls a side in turns)')
-    say(f'[train graphs] val_forward, {call.captures} graphs (they grew the pool they share '
-        f'with the train step\'s graphs by {call.pool_bytes / 2 ** 20:.0f} MiB): '
-        + '; '.join(rows) + f'; on {card}')
+                    f'{got:.3e} (eager vs eager {yard:.3e})')
+    say(f'[train graphs] val_forward, {call.captures} graphs: ' + '; '.join(rows)
+        + f'; on {card}')
 
 
 def fp32_train_graph(cfg, device, batches, card) -> None:
     """The same stage under PRECISION 32 (TF32 off, as [train parity] left
-    it): the capture's pool, whose convolutions keep cuDNN's fp32
-    workspaces, and the replayed step's p50 (CUDA events)."""
-    import torch
+    it), whose convolutions keep cuDNN's fp32 workspaces: the compiled step
+    captures its graphs."""
     from stp3_tpu_torch.training.trainer import Trainer
     fp32 = cfg.clone()
     fp32.PRECISION = 32
     trainer = Trainer(fp32, device=device, seed=SEED)
-    t0 = time.perf_counter()
     n = warm_up_to_graphs(trainer, batches[0])
-    warm_s = time.perf_counter() - t0
-    grads = trainer.graphs['gradients']
-    times = [timed_wall(lambda: trainer.train_step(batches[i % 2]))[1] for i in range(3)]
-    say(f'[train graphs] fp32: {n} steps to the capture ({warm_s:.1f} s), pool '
-        f'{(grads.pool_bytes + trainer.graphs["update"].pool_bytes) / 2 ** 20:.0f} MiB, capture '
-        f'{grads.capture_seconds:.2f} s; replayed step p50 {np.median(times):.2f} ms (CUDA '
-        f'events, 3 steps); reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB; on {card}')
+    say(f'[train graphs] fp32: {n} steps to the capture; on {card}')
     del trainer
     free_card()
-
-
-def running_stats(model) -> dict:
-    """{name: copy} of every 'bn' site's running statistics."""
-    from stp3_tpu_torch.layers.base import batch_norms
-    return {f'{i}.{stat}': getattr(m, stat).detach().clone()
-            for i, m in enumerate(batch_norms(model)) for stat in ('mean', 'var')}
 
 
 def phase_perception_bn(cfg, device, card):
@@ -2160,7 +1285,7 @@ def phase_perception_bn(cfg, device, card):
     and under REMAT 'none' must leave the same running statistics: a
     second update in the recomputation would take a second momentum step,
     about as large as the step's own change, so the two may differ by at
-    most 1e-2 of that change. Then the train step's p50 and peak memory,
+    most 1e-2 of that change. Then the compiled train step (``phase_train``)
     and an eval forward on the running statistics with finite heads.
     Returns the launches of one step."""
     import torch
@@ -2193,8 +1318,6 @@ def phase_perception_bn(cfg, device, card):
              'none: the recomputation updated them again')
     trainer, batches, launches = phase_train(cfg, device, card, 'perception bn',
                                              bev_splat=1, gather_rows=1)
-    if '--profile' in sys.argv[1:]:
-        profile_train(trainer, batches, card, tag='perception bn')
     out, _ = trainer.val_forward(batches[0])
     for key in ('segmentation', 'pedestrian', 'hdmap'):
         if not torch.isfinite(out[key].float()).all():
@@ -2244,18 +1367,7 @@ def remat_distance(got, want) -> dict:
             'median': float(np.median(list(errs.values()))), 'worst': max(errs.values())}
 
 
-def step_ms(trainer, batch):
-    """(ms of one train step by CUDA events, its loss terms)."""
-    import torch
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    loss = trainer.train_step(batch)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end), loss
-
-
-def phase_remat(cfg, device, card, turns: int = 4) -> dict:
+def phase_remat(cfg, device, card) -> dict:
     """[remat]: the full-width Planning stage (batch 2, bf16 policy over fp32
     masters, seeded init, a synthetic batch) under each of ``REMAT_TAGS``.
     Each tag's step (dropout on, the latent from the seeded generator) from
@@ -2267,10 +1379,7 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
     sees, so it runs again in the recomputation). Then the compiled train
     step's warm-up steps and its capture (a tag whose recomputation cannot
     be captured raises, naming the tag), the same launches in its
-    gradients' graph, one replayed step's peak ``max_memory_allocated``
-    and ``turns`` pairs of replayed train steps in turns with a resident
-    'encoder' trainer (CUDA events; the tag first in every other pair):
-    each tag's p50 beside 'encoder''s of the same turns. Returns the
+    gradients' graph, and a replayed step's loss terms finite. Returns the
     launches of the counted (eager) steps, summed over the tags."""
     import torch
     from stp3_tpu_torch.training.trainer import Trainer
@@ -2279,20 +1388,17 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
     free_card()
     batch, = synthetic_batches(cfg, 1, device)
     ref = remat_numbers(remat_trainer(cfg, 'encoder', weights, device), batch)
-    reruns = []
-    for _ in range(2):
-        base = remat_trainer(cfg, 'encoder', weights, device)
-        reruns.append(remat_distance(remat_numbers(base, batch), ref))
+    reruns = [remat_distance(remat_numbers(remat_trainer(cfg, 'encoder', weights, device),
+                                           batch), ref) for _ in range(2)]
+    free_card()
     yard = {m: max(r[m] for r in reruns) for m in reruns[0]}
     limit = {m: max(REMAT_MULTIPLE * v, REMAT_FLOOR) for m, v in yard.items()}
-    warm_up_to_graphs(base, batch)                    # the resident 'encoder' trainer
     say(f'[remat] {cfg.TAG}, batch {cfg.BATCHSIZE}, PRECISION {cfg.PRECISION} over fp32 '
         f'masters: {len(ref[1])} gradients; two \'encoder\' reruns against the first: loss '
         f'terms rel {yard["loss"]:.2e}, gradients median {yard["median"]:.2e}, worst '
         f'{yard["worst"]:.2e} (the yardstick); each tag may reach {REMAT_MULTIPLE:g}x it, or '
         f'{REMAT_FLOOR:g}')
     total = {name: 0 for name in counters()}
-    rows = []
     for tag in REMAT_TAGS:
         trainer = remat_trainer(cfg, tag, weights, device)
         reset_launches()
@@ -2313,72 +1419,15 @@ def phase_remat(cfg, device, card, turns: int = 4) -> dict:
         warm_up_to_graphs(trainer, batch)          # the compiled step captures, or raises
         expect_train_graphs(f'[remat] {tag!r}', trainer, bev_splat=1, gather_rows=1,
                             convnext_mlp=k2)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_ms(trainer, batch)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        times = {'tag': [], 'encoder': []}
-        for i in range(turns):
-            order = (('tag', trainer), ('encoder', base))
-            for name, tr in (order if i % 2 == 0 else order[::-1]):
-                ms, loss = step_ms(tr, batch)
-                times[name].append(ms)
-                if not all(torch.isfinite(v).all() for v in loss.values()):
-                    fail(f'[remat] {tag!r}: a loss term of a timed step is not finite')
-        p50 = {k: float(np.median(v)) for k, v in times.items()}
-        rows.append((tag, p50['tag'], p50['encoder'], peak))
-        say(f'[remat] {tag}: step p50 {p50["tag"]:.2f} ms against the resident \'encoder\' '
-            f'trainer\'s {p50["encoder"]:.2f} in the same {turns} turns (CUDA events; spread '
-            f'{min(times["tag"]):.2f}-{max(times["tag"]):.2f} and '
-            f'{min(times["encoder"]):.2f}-{max(times["encoder"]):.2f}), ratio '
-            f'{p50["tag"] / p50["encoder"]:.3f}; peak memory {peak:.2f} GiB; launches '
-            f'{launches}; against \'encoder\': loss rel {dist["loss"]:.2e}, gradients median '
-            f'{dist["median"]:.2e}, worst {dist["worst"]:.2e}; on {card}')
+        loss = trainer.train_step(batch)
+        if not all(torch.isfinite(v).all() for v in loss.values()):
+            fail(f'[remat] {tag!r}: a loss term of a replayed step is not finite')
+        say(f'[remat] {tag}: launches {launches}; against \'encoder\': loss rel '
+            f'{dist["loss"]:.2e}, gradients median {dist["median"]:.2e}, worst '
+            f'{dist["worst"]:.2e}; its compiled step captured and replayed; on {card}')
         del trainer
         free_card()
-    base_peak = rows[0][3]
-    say('[remat] against \'encoder\' (p50 ratio in turns, peak GiB difference): ' + '; '.join(
-        f'{tag} {ms / enc:.3f}x, {peak - base_peak:+.2f} GiB' for tag, ms, enc, peak in rows)
-        + '; the resident \'encoder\' trainer, the weights, the batch and the reference '
-        f'gradients are in every peak; on {card}')
-    del base
-    free_card()
     return total
-
-
-def profile_train(trainer, batches, card, steps: int = 3, tag: str = 'train'):
-    """Where a train step's time goes (--profile)."""
-    import torch
-
-    def timed(fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        return out, (start, end)
-
-    parts = {'loss (labels, forward, losses)': [], 'backward': [], 'clip + Adam': [],
-             'host issue of one step': []}
-    for i in range(6):
-        batch = batches[i % 2]
-        trainer.optimizer.zero_grad(set_to_none=False)       # the graphs hold .grad
-        (total, _), ev_loss = timed(lambda: trainer.loss_fn(batch))
-        _, ev_bwd = timed(total.backward)
-        _, ev_opt = timed(lambda: (torch.nn.utils.clip_grad_norm_(
-            trainer.model.parameters(), float(trainer.cfg.GRAD_NORM_CLIP)),
-            trainer.optimizer.step()))
-        torch.cuda.synchronize()
-        for key, (a, b) in zip(parts, (ev_loss, ev_bwd, ev_opt)):
-            parts[key].append(a.elapsed_time(b))
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        parts['host issue of one step'].append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-    say(f'[profile] {tag} step, median of 6 (ms): ' + ', '.join(
-        f'{k} {float(np.median(v)):.2f}' for k, v in parts.items()) + f'; on {card}')
-
-    profile_window(lambda i: trainer.train_step(batches[i % 2]), f'{tag} step', card, steps,
-                   top=15)
 
 
 def finite_dict(d) -> bool:
@@ -2489,28 +1538,16 @@ def phase_train_cli(device, card, repo: str):
         f'{second["start_best_iou"]:.4f}; ended at step {second["step"]} (Adam step {adam}), '
         f'best IoU {second["best_iou"]:.4f}; format_version {meta["format_version"]}')
 
-    path = os.path.join(second['last'], 'state.pt')
-    t0 = time.perf_counter()
     loaded = ckpt_lib.load_checkpoint(second['last'], map_location=device)
-    torch.cuda.synchronize()
-    load_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
     probe = ckpt_lib.save_checkpoint(os.path.join(save_dir, 'save_probe'), loaded['step'],
                                      loaded['model'], loaded['optimizer'], None,
                                      loaded['generator'])
-    save_ms = (time.perf_counter() - t0) * 1e3
     same = all(torch.equal(a, loaded['model'][k].cpu()) for k, a in
                ckpt_lib.load_checkpoint(probe)['model'].items())
     if not same:
         fail('[train_cli] a checkpoint saved from the card does not read back bit for bit')
-    train_ms, val_ms = first['train_ms'] + second['train_ms'], first['val_ms'] + second['val_ms']
-    say(f'[train_cli] train step p50 {np.median(train_ms):.2f} ms (median of {len(train_ms)}, '
-        f'CUDA events; spread {min(train_ms):.2f}-{max(train_ms):.2f}), '
-        f'{b / np.median(train_ms) * 1e3:.3f} samples/s; val step (batch {b}) p50 '
-        f'{np.median(val_ms):.2f} ms (median of {len(val_ms)}; spread {min(val_ms):.2f}-'
-        f'{max(val_ms):.2f}); checkpoint {os.path.getsize(path)} B, load {load_ms:.1f} ms '
-        f'(to the card), save {save_ms:.1f} ms (from the card); steps 2-3 ran under the '
-        f'profiler; on {card}')
+    say(f'[train_cli] checkpoint {os.path.getsize(os.path.join(second["last"], "state.pt"))} '
+        f'B, loaded to the card and saved from it bit for bit; on {card}')
     cli_panels_and_nan_check(cfg, device, card)
     return second['last'], launches
 
@@ -2558,9 +1595,7 @@ def cli_panels_and_nan_check(cfg, device, card: str) -> None:
     trainer = Trainer(run_cfg, device=device, seed=SEED)
     batch, = synthetic_batches(run_cfg, 1, device)
     output, labels = trainer.val_forward(batch)
-    t0 = time.perf_counter()
     panel = visualise_output(labels, output, run_cfg)
-    vis_ms = (time.perf_counter() - t0) * 1e3
     t, (h, w) = labels['segmentation'].shape[1], labels['segmentation'].shape[2:]
     colours = len(np.unique(panel.reshape(-1, 3), axis=0))
     if panel.shape != (t, 7 * h, 2 * w, 3) or panel.dtype != np.uint8 or colours < 4:
@@ -2586,7 +1621,7 @@ def cli_panels_and_nan_check(cfg, device, card: str) -> None:
     if not same:
         fail('[train_cli] DEBUG.NAN_CHECK raised, but the parameters, Adam or the step moved')
     say(f'[train_cli] panels of the card\'s val forward: {panel.shape} uint8, {colours} '
-        f'colours, {vis_ms:.0f} ms on the host; DEBUG.NAN_CHECK on a NaN camera image: '
+        f'colours; DEBUG.NAN_CHECK on a NaN camera image: '
         f'FloatingPointError ({message}); parameters, Adam state and step {step} unchanged bit '
         f'for bit; on {card}')
     del trainer
@@ -2640,63 +1675,16 @@ def phase_evaluate(path: str, ckpt: str, device, card, keys) -> dict:
     bad = {k: v for k, v in results.items() if not (np.isfinite(v) and result_in_range(k, v))}
     if bad:
         fail(f'[{path}] results not finite or out of range: {bad}')
-    say(f'[{path}] launches {launches}; {n} samples at batch 1 in {stats["seconds"]:.2f} s: '
-        f'{n / stats["seconds"]:.3f} samples/s (metrics and host work included), forward to '
-        f'the first result p50 {np.median(stats["forward_ms"]):.2f} ms; on {card}')
+    say(f'[{path}] launches {launches}; {n} samples at batch 1, every result finite and in '
+        f'range; on {card}')
     return launches
-
-
-def planning_result_keys(cfg) -> list:
-    keys = ['vehicle_iou', 'pedestrian_iou'] + [
-        f'{e}_iou' for e in cfg.SEMANTIC_SEG.HDMAP.ELEMENTS]
-    return keys + [f'plan_{m}_{s + 1}s' for m in ('L2', 'obj_col', 'obj_box_col')
-                   for s in range(cfg.N_FUTURE_FRAMES // 2)]
-
-
-def wall_samples(fn, reps: int) -> list:
-    """Wall ms of ``reps`` calls of ``fn``, each from a drained device to a
-    drained device."""
-    import torch
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return times
-
-
-def wall_ms(fn, reps: int) -> float:
-    return float(np.median(wall_samples(fn, reps)))
-
-
-def eval_split(trainer, batch, tag: str, card) -> None:
-    """Where a batch-1 evaluation forward's time goes with no loader
-    threads beside it: ``val_forward`` (the compiled call of the labels,
-    the parameters' cast to the compute dtype, the forward and plan, the
-    fp32 cast), and eagerly its labels alone and the cast alone; wall
-    clock, median of 5 (--profile: a torch.profiler window of 3
-    ``val_forward``)."""
-    import torch
-    from stp3_tpu_torch.utils.precision import cast_parameters
-    full = wall_ms(lambda: trainer.val_forward(batch), 5)
-    with torch.no_grad():
-        labels = wall_ms(lambda: trainer.prepare_future_labels(batch), 5)
-        cast = wall_ms(lambda: cast_parameters(trainer.model, trainer.compute_dtype), 5)
-    say(f'[{tag}] val_forward at batch 1 alone {full:.2f} ms (the compiled call: its first '
-        f'call captures, the others replay); eagerly, its labels alone {labels:.2f} ms and the '
-        f'parameters\' cast to {trainer.compute_dtype} alone {cast:.2f} ms (wall clock, '
-        f'median of 5); on {card}')
-    if '--profile' in sys.argv[1:]:
-        profile_window(lambda i: trainer.val_forward(batch), f'{tag} val_forward', card)
 
 
 def phase_decode(ckpt: str, device, card):
     """[decode]: the Prediction stage's validation output at full width and
     batch 1 (the checkpoint's weights): the device decode
-    (utils/instance_jit.py) against the host loop, id for id; both timed,
-    and the Hungarian linking. Returns (trainer, its synthetic batch)."""
+    (utils/instance_jit.py) against the host loop, id for id. Returns
+    (trainer, its synthetic batch)."""
     from stp3_tpu_torch.evaluate import eval_cfg
     from stp3_tpu_torch.training import checkpoint as ckpt_lib
     from stp3_tpu_torch.training.trainer import Trainer
@@ -2707,22 +1695,17 @@ def phase_decode(ckpt: str, device, card):
     batch, = synthetic_batches(cfg, 1, device)
     output, _ = trainer.val_forward(batch)
 
-    def decode(jit_decode, consistent=False):
+    def decode(jit_decode):
         return predict_instance_segmentation_and_trajectories(
-            output, make_consistent=consistent, jit_decode=jit_decode)
+            output, make_consistent=False, jit_decode=jit_decode)
 
     on_device, on_host = decode(True), decode(False)
     if on_device.shape != on_host.shape or not np.array_equal(on_device, on_host):
         fail(f'[decode] device decode differs from the host loop at '
              f'{np.count_nonzero(on_device != on_host)} of {on_host.size} pixels')
     per_frame = [int(f.max()) for f in on_device.reshape(-1, *on_device.shape[-2:])]
-    dev_ms, host_ms = wall_ms(lambda: decode(True), 5), wall_ms(lambda: decode(False), 3)
-    linked_ms = wall_ms(lambda: decode(True, True), 3)
     say(f'[decode] Prediction stage, {tuple(output["instance_center"].shape)} centers: the device '
-        f'decode equals the host loop id for id (instances per frame {per_frame}); device '
-        f'decode {dev_ms:.2f} ms (ids to the host included), host loop {host_ms:.2f} ms, device '
-        f'decode + Hungarian linking {linked_ms:.2f} ms (wall clock, median); on {card}')
-    eval_split(trainer, batch, 'decode', card)
+        f'decode equals the host loop id for id (instances per frame {per_frame}); on {card}')
     return trainer, batch
 
 
@@ -2733,15 +1716,13 @@ def phase_labels_as_prediction(pred_trainer, pred_batch, device, card):
     element), its GT trajectory into PlanningMetric per second of
     horizon, and the Prediction stage's label instance ids into
     PanopticMetric. Every present class's IoU, PQ, SQ and RQ must be 1,
-    with no false positive or negative; L2 0 and no collision. First the
-    Planning stage's ``eval_split``."""
+    with no false positive or negative; L2 0 and no collision."""
     import torch
     from stp3_tpu_torch.metrics import IoUMetric, PanopticMetric, PlanningMetric
     from stp3_tpu_torch.training.trainer import Trainer
     cfg = make_cfg(PLANNING_STAGE, CLI_DATA)
     trainer = Trainer(cfg, device=device, seed=SEED)
     batch, = synthetic_batches(cfg, 1, device)
-    eval_split(trainer, batch, 'labels as prediction', card)
     labels = trainer.prepare_future_labels(batch)
     rf = cfg.TIME_RECEPTIVE_FIELD
     ious = {}
@@ -2779,88 +1760,6 @@ def phase_labels_as_prediction(pred_trainer, pred_batch, device, card):
         f'{int(pan.state["true_positive"][1])} vehicle instances; no false positive or negative')
 
 
-def reference_state_dict(mcfg, seed: int = SEED) -> dict:
-    """A reference-format state_dict of ``mcfg`` (a models.stp3.STP3Config)
-    from ``seed``: the port's ``synthesize_state_dict``, then every BN
-    running variance drawn from [0.5, 1.5] and every other vector or scalar
-    the init leaves constant (biases, BN scales, running means, layer
-    scales, the GRU biases, the uncertainty weights) moved off its constant,
-    so that a swapped mean and variance, a transposed kernel or a bias in
-    the wrong place changes the outputs."""
-    from stp3_tpu_torch.utils import torch_import as ti
-    sd = ti.synthesize_state_dict(mcfg, seed)
-    rng = np.random.RandomState(seed)
-    for key, value in sd.items():
-        if key.endswith('.running_var'):
-            sd[key] = rng.uniform(0.5, 1.5, value.shape).astype(np.float32)
-        elif value.ndim <= 1 and np.all(value == value.flat[0]):
-            sd[key] = (value + 0.1 * rng.randn(*value.shape)).astype(np.float32)
-    return sd
-
-
-def grid_constants(mcfg) -> dict:
-    """The grid buffers a reference checkpoint carries (``model.frustum``,
-    ``model.bev_*``), from the port's geometry."""
-    from stp3_tpu_torch.ops.geometry import calculate_birds_eye_view_parameters, create_frustum
-    res, start, dim = calculate_birds_eye_view_parameters(mcfg.x_bound, mcfg.y_bound,
-                                                          mcfg.z_bound)
-    return {'model.bev_resolution': res, 'model.bev_start_position': start,
-            'model.bev_dimension': dim,
-            'model.frustum': create_frustum(mcfg.final_dim, mcfg.encoder_downsample,
-                                            mcfg.d_bound).astype(np.float32)}
-
-
-def write_reference_checkpoint(cfg, path: str, seed: int = SEED):
-    """Write a Lightning-style .ckpt of ``cfg`` to ``path``: {'state_dict':
-    {'model.*': tensor}, 'hyper_parameters': the config as a plain dict,
-    ...}, with the bookkeeping entries a reference file carries
-    (``num_batches_tracked`` beside every BN, ``model.frustum``,
-    ``model.bev_*``). Returns (the model's state_dict as numpy, the
-    bookkeeping keys)."""
-    import torch
-    from stp3_tpu_torch.models.stp3 import STP3Config
-    mcfg = STP3Config.from_cfg(cfg)
-    sd = reference_state_dict(mcfg, seed)
-    extra = grid_constants(mcfg)
-    extra.update({k[:-len('running_mean')] + 'num_batches_tracked': np.asarray(7, np.int64)
-                  for k in sd if k.endswith('.running_mean')})
-    state_dict = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in {**sd, **extra}.items()}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({'state_dict': state_dict, 'hyper_parameters': cfg.convert_to_dict(),
-                'epoch': 19, 'global_step': 1000}, path)
-    return sd, sorted(extra)
-
-
-def gru_fold(sd: dict, key: str):
-    """The planner GRU's (bias_ih, bias_hh) as export writes them after an
-    import: the r / z parts of bias_hh folded into bias_ih, zeros left."""
-    bih, bhh = sd[f'{key}.bias_ih'], sd[f'{key}.bias_hh']
-    h = bhh.shape[0] // 3
-    return (np.concatenate([bih[:2 * h] + bhh[:2 * h], bih[2 * h:]]),
-            np.concatenate([np.zeros(2 * h, np.float32), bhh[2 * h:]]))
-
-
-def check_export(sd: dict, bookkeeping, exported: dict, cfg) -> int:
-    """Fail unless ``exported`` (the state_dict of an exported .ckpt) holds
-    every tensor of ``sd`` bit for bit, the planner GRU's biases as their
-    fold, and the bookkeeping entries rebuilt. Returns the tensors checked."""
-    import torch
-    from stp3_tpu_torch.models.stp3 import STP3Config
-    if sorted(exported) != sorted(set(sd) | set(bookkeeping)):
-        fail(f'export: keys differ: {sorted(set(exported) ^ set(sd) ^ set(bookkeeping))[:6]}')
-    want = dict(sd)
-    gru = 'model.planning.GRU'
-    if f'{gru}.bias_ih' in sd:
-        want[f'{gru}.bias_ih'], want[f'{gru}.bias_hh'] = gru_fold(sd, gru)
-    want.update(grid_constants(STP3Config.from_cfg(cfg)))
-    want.update({k: np.zeros((), np.int64) for k in bookkeeping if 'num_batches_tracked' in k})
-    bad = [k for k, v in want.items()
-           if not torch.equal(exported[k], torch.from_numpy(np.ascontiguousarray(v)))]
-    if bad:
-        fail(f'export: {len(bad)} tensors do not come back bit for bit, e.g. {bad[:4]}')
-    return len(want)
-
-
 def phase_reference_import(device, card, repo: str, cfg=None) -> dict:
     """[reference_import]: a reference-format Lightning .ckpt of the
     nuScenes Planning stage at full width (seeded, the config as plain
@@ -2885,45 +1784,25 @@ def phase_reference_import(device, card, repo: str, cfg=None) -> dict:
     def log(msg):
         say(f'[reference_import] {msg}')
 
-    t0 = time.perf_counter()
     path, report = import_checkpoint(ckpt, os.path.join(root, 'imported'), log=log)
-    import_s = time.perf_counter() - t0
     if not report.ok() or report.ignored != bookkeeping:
         fail(f'[reference_import] report: missing {report.missing[:4]}, unexpected '
              f'{report.unexpected[:4]}, ignored beyond the bookkeeping '
              f'{sorted(set(report.ignored) ^ set(bookkeeping))[:4]}')
     launches = phase_evaluate('reference_import', path, device, card, planning_result_keys(cfg))
-    t0 = time.perf_counter()
     export_checkpoint(path, os.path.join(root, 'exported.ckpt'), log=log)
-    export_s = time.perf_counter() - t0
     exported = torch.load(os.path.join(root, 'exported.ckpt'), map_location='cpu',
                           weights_only=True)['state_dict']
-    n = check_export(sd, bookkeeping, exported, cfg)
+    try:
+        n = check_export(sd, bookkeeping, exported, cfg)
+    except AssertionError as exc:
+        fail(f'[reference_import] {exc}')
     say(f'[reference_import] {cfg.TAG}: {len(sd)} model tensors, {n_bytes} B '
         f'({sum(v.size for v in sd.values())} values) + {len(bookkeeping)} bookkeeping entries; '
-        f'import {import_s:.2f} s, export {export_s:.2f} s (wall clock, host); report ok, '
+        f'report ok, '
         f'{report.converted} leaves, only the bookkeeping ignored; the export gives back all '
         f'{n} tensors bit for bit (the planner GRU\'s r / z biases as their fold); on {card}')
     return launches
-
-
-def bgra_tick(t: int, frame: dict, theta: float) -> dict:
-    """One leaderboard sensor tick of a recorded frame: 300x400 BGRA
-    cameras, gps (lat, lon, alt) 2 m further north each tick, speed 3 m/s,
-    the compass last in the imu."""
-    from stp3_tpu_torch.deploy.control import RoutePlanner
-    data = {key: (t, np.concatenate([img[..., ::-1], np.full(img.shape[:2] + (1,), 255,
-                                                             np.uint8)], -1))
-            for key, img in frame.items()}
-    data['gps'] = (t, np.array([2.0 * t / RoutePlanner.SCALE[0], 0.0, 0.0]))
-    data['speed'] = (t, {'speed': 3.0})
-    data['imu'] = (t, np.array([0.0] * 6 + [theta]))
-    return data
-
-
-# the harness's route: north along the ticks' gps, then a turn
-AGENT_ROUTE = [({'lat': 0.0, 'lon': 0.0}, 4), ({'lat': 2e-4, 'lon': 0.0}, 4),
-               ({'lat': 6e-4, 'lon': 1e-4}, 1)]
 
 
 def record_selection(model, sink: dict) -> None:
@@ -2946,22 +1825,21 @@ def record_selection(model, sink: dict) -> None:
 
 def drive_harness(agent, n_ticks: int, sink=None):
     """``run_step`` over ``n_ticks`` recorded ticks (the sampler's module RNG
-    seeded before each): the controls, each planned tick's wall ms, and
+    seeded before each): the controls, the number of planned ticks, and
     the launches of the planned ticks after the first two; with a
     ``record_selection`` sink, each planned tick's pick."""
-    controls, tick_ms = [], []
+    controls, planned = [], 0
     for t, (frame, _, theta) in enumerate(recorded_ticks(n_ticks)):
         data = bgra_tick(t, frame, theta)
-        if len(tick_ms) == 2:
+        if planned == 2:
             reset_launches()
         np.random.seed(SEED + t)
-        t0 = time.perf_counter()
         controls.append(agent.run_step(data, t))
         if agent.core.warmed_up:
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            planned += 1
             if sink is not None:
                 sink['picks'].append(sink['pick'].clone())
-    return controls, tick_ms, read_launches()
+    return controls, planned, read_launches()
 
 
 def drive_core(core, n_ticks: int, sink=None):
@@ -2991,19 +1869,17 @@ def drive_core(core, n_ticks: int, sink=None):
     return controls
 
 
-def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: dict,
-                      cfg=None) -> dict:
+def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, cfg=None) -> dict:
     """[carla_agent]: a reference-format .ckpt of the CARLA Planning stage
     at full width, imported (PLANNING.CAM_FRONT_PARITY set: the rig's front
     camera is at index 0), driven through the harness ``STP3Agent`` on the
     card over the recorded ticks as BGRA sensor data: warm-up ticks zero,
     planned ticks equal (1e-5, deterministic algorithms) to an
     ``AgentCore`` on the same loaded model fed the RGB frames, launches
-    per tick as [agent]'s default (static)
-    mode; the harness tick p50 beside [agent]'s plan_step p50. Then the
-    harness with the model cast to bf16: its tick p50 and how many planned
-    ticks select another candidate than fp32 (a measurement). Returns the
-    launches of the 20 timed fp32 ticks."""
+    per tick as [agent]'s default (static) mode. Then the harness with
+    the model cast to bf16: how many planned ticks select another
+    candidate than fp32 (a measurement). Returns the launches of the 20
+    counted fp32 ticks."""
     import shutil
     import torch
     from stp3_tpu_torch.carla_agent import STP3Agent
@@ -3027,8 +1903,8 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
         fail(f'[carla_agent] import: report ok {report.ok()}, CAM_FRONT_PARITY not set and '
              f'printed for the rig {list(cfg.IMAGE.NAMES)}')
 
-    rf, n_timed = cfg.TIME_RECEPTIVE_FIELD, 20
-    n_ticks = rf + 3 + n_timed
+    rf, n_counted = cfg.TIME_RECEPTIVE_FIELD, 20
+    n_ticks = rf + 3 + n_counted
     agent = STP3Agent()
     agent.setup(path)
     if agent.core.device.type != device.type or agent.core.model.cfg.cam_front_index != 1:
@@ -3039,16 +1915,16 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     record_selection(agent.core.model, sink)
     # the harness's core again, compiled with the recording in its graphs
     agent.core = AgentCore(agent.cfg, agent.core.model, device=device)
-    controls, tick_ms, launches = drive_harness(agent, n_ticks, sink)
+    controls, planned, launches = drive_harness(agent, n_ticks, sink)
     picks = {'fp32': list(sink['picks'])}
     expect_launches('[carla_agent] harness ticks (replays)', launches)
     per = tick_graph(agent.core).launches_per_call
     expect_launches('[carla_agent] harness tick graph', per,
                     **{k: v for k, v in agent_per_tick['static'].items() if v})
-    n_warm = len(controls) - len(tick_ms)
+    n_warm = len(controls) - planned
     zero = {'steer': 0.0, 'throttle': 0.0, 'brake': 0.0}
-    if len(tick_ms) != 2 + n_timed or n_warm != rf + 1 or any(c != zero for c in controls[:n_warm]):
-        fail(f'[carla_agent] {len(controls)} ticks, {len(tick_ms)} planned, warm-up controls '
+    if planned != 2 + n_counted or n_warm != rf + 1 or any(c != zero for c in controls[:n_warm]):
+        fail(f'[carla_agent] {len(controls)} ticks, {planned} planned, warm-up controls '
              f'{controls[:n_warm]}')
     core = AgentCore(agent.cfg, agent.core.model, device=device)
     sink['picks'] = []
@@ -3079,15 +1955,12 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     if err > 1e-5 or controls_d[:n_warm] != controls[:n_warm]:
         fail(f'[carla_agent] harness controls differ from a direct AgentCore by {err:.3e} '
              f'(deterministic algorithms)')
-    say(f'[carla_agent] harness: {n_warm} warm-up ticks of zero control, {len(tick_ms)} planned '
+    say(f'[carla_agent] harness: {n_warm} warm-up ticks of zero control, {planned} planned '
         f'ticks equal to a direct AgentCore on the same model within {err:.3e} (tolerance '
         f'1e-5, deterministic algorithms; without them the two runs differ by {spread:.3e}, '
-        f'{flips_nd} of {len(tick_ms)} ticks selecting another candidate: the atomics\' '
+        f'{flips_nd} of {planned} ticks selecting another candidate: the atomics\' '
         f'order); launches per tick (in its graph) {({k: v for k, v in per.items() if v})} as '
-        f'[agent] static; harness tick p50 {np.median(tick_ms[2:]):.2f} ms (median of '
-        f'{n_timed}, wall clock: push_frame with the BGRA flip, the route planner and plan_step; spread '
-        f'{min(tick_ms[2:]):.2f}-{max(tick_ms[2:]):.2f}) beside [agent] static plan_step p50 '
-        f'{agent_p50["static"]:.2f} ms; on {card}')
+        f'[agent] static; on {card}')
 
     # the same harness with the imported model cast to bf16 (AgentCore runs in
     # its weights' dtype): a measurement, no option of the harness
@@ -3098,40 +1971,21 @@ def phase_carla_agent(device, card, repo: str, agent_per_tick: dict, agent_p50: 
     record_selection(model16, sink)
     agent16.core = AgentCore(agent16.cfg, model16, device=device)
     agent16.set_global_plan(AGENT_ROUTE)
-    controls16, tick16_ms, _ = drive_harness(agent16, n_ticks, sink)
+    controls16, planned16, _ = drive_harness(agent16, n_ticks, sink)
     picks['bf16'] = sink['picks']
-    if len(tick16_ms) != 2 + n_timed or not all(
+    if planned16 != 2 + n_counted or not all(
             np.isfinite([c['steer'], c['throttle']]).all() for c in controls16):
-        fail(f'[carla_agent] bf16 harness: {len(tick16_ms)} planned ticks, controls {controls16}')
+        fail(f'[carla_agent] bf16 harness: {planned16} planned ticks, controls {controls16}')
     sel = {k: torch.cat(v).tolist()[2:] for k, v in picks.items()}
     flips = sum(a != b for a, b in zip(sel['fp32'], sel['bf16']))
-    d_steer = float(np.abs(np.array([c['steer'] for c in controls16[-n_timed:]])
-                           - got[-n_timed:, 0]).max())
-    say(f'[carla_agent] bf16 harness: tick p50 {np.median(tick16_ms[2:]):.2f} ms (median of '
-        f'{n_timed}; spread {min(tick16_ms[2:]):.2f}-{max(tick16_ms[2:]):.2f}) against fp32\'s '
-        f'{np.median(tick_ms[2:]):.2f} ms; {flips} of {n_timed} planned ticks select another '
+    d_steer = float(np.abs(np.array([c['steer'] for c in controls16[-n_counted:]])
+                           - got[-n_counted:, 0]).max())
+    say(f'[carla_agent] bf16 harness: {flips} of {n_counted} planned ticks select another '
         f'candidate than fp32 (indices fp32 {sel["fp32"]}, bf16 {sel["bf16"]}); steer differs '
         f'by up to {d_steer:.3e}; launches per tick (in its graph) '
         f'{ {k: v for k, v in tick_graph(agent16.core).launches_per_call.items() if v}}; '
         f'on {card}')
     return launches
-
-
-# the real-data paths: nuScenes' Planning stage with the depth label, and
-# CARLA's, each over its PIL-free stand-in tree (tests/torch_fake_datasets.py)
-NUSCENES_DATA = {'DATASET': {'NAME': 'nuscenes', 'VERSION': 'mini'},
-                 'LIFT': {'GT_DEPTH': True}, 'WORKER_KIND': 'process'}
-CARLA_DATA = {'DATASET': {'NAME': 'carla'}, 'WORKER_KIND': 'process'}
-
-
-def fake_datasets(repo: str):
-    """tests/torch_fake_datasets.py (no PIL, no cv2, no JAX), importable by
-    this process and by the loaders' spawned workers."""
-    tests = os.path.join(repo, 'tests')
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import torch_fake_datasets
-    return torch_fake_datasets
 
 
 def phase_image_io(repo: str, card: str) -> None:
@@ -3140,15 +1994,13 @@ def phase_image_io(repo: str, card: str) -> None:
     Pillow's decode stored beside it, and its nuScenes resize (bilinear,
     0.3) + crop to the SHA-256 of Pillow's; PNGs of every mode written with
     every row filter read back exactly; the resampler against its numpy
-    plain version; the host's wall-clock ms of a decode and of a resize +
-    crop."""
+    plain version."""
     import hashlib
     from stp3_tpu_torch.datas.nuscenes_data import resize_and_crop_image
     from stp3_tpu_torch.utils import image_io
-    fake = fake_datasets(repo)
     info = image_io.load()
-    say(f"[image_io] image_codec.c {'built' if info['built'] else 'reused'} in "
-        f"{info['seconds']:.2f} s -> {os.path.relpath(info['path'], repo)}")
+    say(f"[image_io] image_codec.c {'built' if info['built'] else 'reused'} "
+        f"-> {os.path.relpath(info['path'], repo)}")
     meta = fake.camera_meta()
     img = image_io.read_jpeg(fake.CAMERA_JPEG)
     digest = hashlib.sha256(img.tobytes()).hexdigest()
@@ -3172,72 +2024,38 @@ def phase_image_io(repo: str, card: str) -> None:
         if not np.array_equal(image_io.resample(src, size, filt),
                               image_io.resample_plain(src, size, filt)):
             fail(f'[image_io] {filt} resample to {size} differs from its plain version')
-    data = image_io.read_bytes(fake.CAMERA_JPEG)
-    decode_ms = wall_ms(lambda: image_io.decode_jpeg(data), 10)
-    resize_ms = wall_ms(lambda: resize_and_crop_image(img, (480, 270), (0, 46, 480, 270)),
-                               10)
     say(f'[image_io] the 1600x900 fixture decodes to Pillow\'s SHA-256 and its resize + crop to '
         f'Pillow\'s; PNGs L / P / LA / RGB / RGBA with all five row filters read back exactly; '
-        f'bilinear, nearest and bicubic equal their plain versions. Host wall clock (median of '
-        f'10): {decode_ms:.2f} ms a 1600x900 decode, {resize_ms:.2f} ms a resize to 480x270 + '
-        f'crop, on {os.cpu_count()} host cores beside {card}')
+        f'bilinear, nearest and bicubic equal their plain versions; beside {card}')
 
 
 def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
     """[nuscenes_data] / [carla_data]: a stage's training on its dataset
-    class through ``prepare_dataloaders``: ms per ``__getitem__`` (median
-    of 4, in this process), the loader's samples/s with cfg.N_WORKERS
-    process workers (an epoch without training, after one that starts the
-    pool), then ``epochs`` epochs of train steps on the loader's batches
-    (the compiled step: its graphs' launches, the counters over the steps
-    up to the capturing one; every loss term finite), the step p50 beside
-    the loader's rate. Returns the launches."""
+    class through ``prepare_dataloaders`` with cfg.N_WORKERS process
+    workers: ``epochs`` epochs of train steps on the loader's batches (the
+    compiled step: its graphs' launches, the counters over the steps up to
+    the capturing one; every loss term finite). Returns the launches."""
     import torch
     from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
     from stp3_tpu_torch.training.trainer import Trainer, batch_to_device
-    t0 = time.perf_counter()
+    from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
     trainloader, valloader, traindata, _ = prepare_dataloaders(cfg, return_dataset=True)
     try:
-        n, b, workers = len(traindata), int(cfg.BATCHSIZE), int(cfg.N_WORKERS)
+        n = len(traindata)
         if len(trainloader) < 3:
             fail(f'[{tag}] {n} training samples: too few for the train steps')
-        get_ms = wall_ms(lambda: traindata[0], 4)
         sample = traindata[0]
-        say(f'[{tag}] {type(traindata).__name__}: {n} training samples, built in '
-            f'{time.perf_counter() - t0:.2f} s; a sample: ' + ', '.join(
-                f'{k} {tuple(v.shape)} {v.dtype}' for k, v in sample.items()
-                if k in ('image', 'depths', 'segmentation', 'hdmap', 'sample_trajectory')))
-        t0 = time.perf_counter()
-        for _ in trainloader:                                       # starts the pool
-            pass
-        first_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        count = sum(int(batch['image'].shape[0]) for batch in trainloader)
-        loader_s = time.perf_counter() - t0
-        rate = count / loader_s
-        say(f'[{tag}] __getitem__ {get_ms:.1f} ms (median of 4, one process); the loader with '
-            f'{workers} process workers: {rate:.2f} samples/s ({count} samples in '
-            f'{loader_s:.2f} s, its first epoch with the pool\'s start {first_s:.2f} s), on '
-            f'{os.cpu_count()} host cores')
-
-        from stp3_tpu_torch.utils.graphs import WARMUP_CALLS
+        say(f'[{tag}] {type(traindata).__name__}: {n} training samples; a sample: ' + ', '.join(
+            f'{k} {tuple(v.shape)} {v.dtype}' for k, v in sample.items()
+            if k in ('image', 'depths', 'segmentation', 'hdmap', 'sample_trajectory')))
         trainer = Trainer(cfg, device=device, seed=SEED)
-        times, losses = [], []
-        t0 = time.perf_counter()
+        losses = []
         reset_launches()
         for _ in range(epochs):
             for batch in trainloader:
-                batch = batch_to_device(batch, device)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                losses.append(trainer.train_step(batch))
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
+                losses.append(trainer.train_step(batch_to_device(batch, device)))
         launches = read_launches()
-        loop_s = time.perf_counter() - t0
-        steps = len(times)
+        steps = len(losses)
         counted = min(steps, WARMUP_CALLS + 1)
         expect_train_graphs(f'[{tag}] train step', trainer, bev_splat=1, gather_rows=1,
                             convnext_mlp=2)
@@ -3250,14 +2068,9 @@ def phase_dataset(tag: str, cfg, device, card: str, epochs: int = 2) -> dict:
                 fail(f'[{tag}] step {i}: loss terms {bad} are not finite')
         if cfg.LIFT.GT_DEPTH and 'depths' not in losses[-1]:
             fail(f'[{tag}] GT_DEPTH is on but the step has no depth loss')
-        p50 = float(np.median(times[1:]))
-        feeds = rate >= b / p50 * 1e3
-        say(f'[{tag}] {steps} train steps on the loader\'s batches, every loss term finite '
-            f'({", ".join(sorted(losses[-1]))}); launches {launches}; step p50 {p50:.2f} ms '
-            f'(median of the {steps - 1} after the first, CUDA events; spread '
-            f'{min(times):.2f}-{max(times):.2f}), {b / p50 * 1e3:.3f} samples/s against the '
-            f'loader\'s {rate:.2f}: the loader {"can" if feeds else "cannot"} feed the card; the '
-            f'loop (loader, copies, steps) {steps * b / loop_s:.3f} samples/s; on {card}')
+        say(f'[{tag}] {steps} train steps on the loader\'s batches ({int(cfg.N_WORKERS)} '
+            f'process workers), every loss term finite ({", ".join(sorted(losses[-1]))}); '
+            f'launches {launches}; on {card}')
         del trainer
         free_card()
         return launches
@@ -3274,15 +2087,12 @@ def phase_real_data(repo: str, device, card: str) -> dict:
     topdown labels at scale 1.1, the hdmap PNGs; 10 training windows).
     Returns their launches."""
     import shutil
-    fake = fake_datasets(repo)
     root = os.path.join(repo, 'build', 'chip_smoke', 'data')
     shutil.rmtree(root, ignore_errors=True)
     nusc_root, carla_root = os.path.join(root, 'nuscenes'), os.path.join(root, 'carla')
-    t0 = time.perf_counter()
     fake.install(n_samples=18)                     # 18 samples: 10 windows of 3 + 6
     fake.write_carla_route(carla_root, n_frames=17, town='Town01_tiny')
     fake.write_carla_route(carla_root, n_frames=9, town='Town05_short')
-    say(f'[real data] stand-in trees written in {time.perf_counter() - t0:.2f} s')
     launches = {}
     cfg = make_cfg(PLANNING_STAGE, NUSCENES_DATA,
                    {'DATASET': {'DATAROOT': nusc_root, 'MAP_FOLDER': nusc_root}})
@@ -3329,8 +2139,7 @@ def phase_dp_nccl(cfg, device, card) -> dict:
     both trainers' clip + Adam on them leave parameters equal bit for bit.
     The distributed step compiles over NCCL (the gradient all-reduce runs
     between its two graphs): K1, K3 and K2 twice in its gradients' graph.
-    Then the p50 of both trainers' replayed steps in turns, and the all-reduce of the ~42 MB of
-    fp32 gradients (one flat call) alone. Returns one step's launches."""
+    Returns the launches of its steps up to the capture."""
     import torch
     import torch.distributed as dist
     from stp3_tpu_torch.parallel import mesh
@@ -3373,29 +2182,11 @@ def phase_dp_nccl(cfg, device, card) -> dict:
                             convnext_mlp=2)
         expect_launches(f'[dp nccl] {n} distributed steps, the last capturing', launches,
                         bev_splat=n, gather_rows=n, convnext_mlp=2 * n)
-        warm_up_to_graphs(plain, batches[1])
-        times = {'plain': [], 'dp': []}
-        for turn in ('plain', 'dp', 'dp', 'plain') * 2:
-            trainer = plain if turn == 'plain' else dp
-            for i in range(2):
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                trainer.train_step(batches[i])
-                end.record()
-                end.synchronize()
-                times[turn].append(start.elapsed_time(end))
-        n_bytes = sum(p.grad.numel() * p.grad.element_size() for p in dp.model.parameters())
-        reduce_ms = time_ms(lambda: mesh.allreduce_gradients(dp.model.parameters(), group),
-                            warmup=2, iters=10)
         say(f'[dp nccl] world 1 over NCCL: the gradients of {sum(1 for _ in dp.model.parameters())} '
             f'tensors all-reduced and divided by 1, the loss terms averaged, and clip + Adam '
             f'on them: bit for bit the plain Trainer\'s; the distributed step compiled, '
             f'launches in its gradients\' graph {dp.graphs["gradients"].launches_per_call}, '
-            f'counted in its {n} steps to the capture {launches}')
-        say(f'[dp nccl] step p50 plain {np.median(times["plain"]):.2f} ms, distributed '
-            f'{np.median(times["dp"]):.2f} ms (8 each, in turns, CUDA events); the gradient '
-            f'all-reduce alone ({n_bytes / 1e6:.1f} MB fp32, one flat call + the copies in and '
-            f'out) p50 {reduce_ms:.3f} ms; on {card}')
+            f'counted in its {n} steps to the capture {launches}; on {card}')
         del plain, dp, batches
         free_card()
         return launches
@@ -3410,12 +2201,10 @@ def spawn_ranks(scenario: str, world: int, repo: str) -> list:
     """``world`` ranks of this script (``--rank scenario``) sharing card 0
     over gloo, under a deadline; returns each rank's JSON result. A rank
     that fails fails the phase."""
-    import torch
     from stp3_tpu_torch.parallel.launch import run_ranks
     out = os.path.join(repo, 'build', 'chip_smoke', f'ranks_{scenario}')
     os.makedirs(out, exist_ok=True)
     free_card()
-    t0 = time.perf_counter()
     try:
         outputs = run_ranks([sys.executable, os.path.abspath(__file__), '--rank', scenario,
                              out], world, RANKS_TIMEOUT_S, cwd=repo, share_device=True)
@@ -3428,8 +2217,7 @@ def spawn_ranks(scenario: str, world: int, repo: str) -> list:
     for line in outputs[0].splitlines():
         if line.startswith('['):
             say(line)
-    say(f'[{scenario}] {world} ranks on one card over gloo finished in '
-        f'{time.perf_counter() - t0:.1f} s of wall time')
+    say(f'[{scenario}] {world} ranks on one card over gloo finished')
     return results
 
 
@@ -3525,20 +2313,13 @@ def rank_dp(out_dir: str) -> dict:
     batch = mesh.shard_batch(dp_global(fp32, device), device, group)
     batch.pop('noise')
     reset_launches()
-    times = []
     for _ in range(3):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
         loss = trainer.train_step(batch)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
     result['launches'] = read_launches()
     expect_launches(f'[dp 2 ranks] rank {rank}: 3 bf16 steps', result['launches'],
                     bev_splat=3, gather_rows=3, convnext_mlp=6)
     if not all(torch.isfinite(v).all() for v in loss.values()):
         fail(f'[dp 2 ranks] rank {rank}: a bf16 loss term is not finite')
-    result['bf16_ms'] = times
     del trainer
     free_card()
     result['bn'] = dp_compare('dp bn', make_cfg(PLANNING_STAGE, {'PRECISION': 32,
@@ -3628,8 +2409,7 @@ def report_dp(results: list, card: str) -> dict:
     for rank, r in enumerate(results):
         say(f'[dp 2 ranks] rank {rank}: 3 bf16 steps at batch 1, eager (a gloo group\'s '
             f'collectives cannot be captured in a CUDA graph), launches {r["launches"]}, '
-            f'step times {[round(t, 2) for t in r["bf16_ms"]]} ms (2 ranks sharing one '
-            f'card, not a speed), on {card}')
+            f'on {card}')
     return {name: sum(r['launches'][name] for r in results) for name in results[0]['launches']}
 
 
@@ -3708,9 +2488,6 @@ def rank_cam(out_dir: str) -> dict:
                                                          commands, target, arrays)[:2]}
                 if dt == torch.float32:
                     truth = {name: occupancy(out) for name, (_, out) in ref.items()}
-                else:
-                    numbers['one_ms'] = time_ms(lambda: plan_step(
-                        model, image, k, e, ego, trajs, gt, commands, target), 2, 5)
         k2 = 2 if dt == torch.bfloat16 else 0              # fp32 takes the unfused MLP
         for n_shards, group in groups.items():
             if rank >= n_shards:
@@ -3739,9 +2516,6 @@ def rank_cam(out_dir: str) -> dict:
                         split[name].update(cam_compare(
                             ref[name], got, model, trajs, commands, target,
                             truth[name] if dt == torch.bfloat16 else None))
-                if dt == torch.bfloat16:
-                    split['plan_ms'] = time_ms(lambda: step(image, k, e, ego, trajs, gt,
-                                                            commands, target), 2, 5)
             numbers[str(n_shards)] = split
         result[str(dt).replace('torch.', '')] = numbers
         del model
@@ -3804,14 +2578,10 @@ def report_cam(results: list, card: str) -> dict:
         say(f'[cam parallel] bf16, {n_shards} ranks: K1 launches per rank (plan step + '
             f'forward, serve_step, serve_step_static) '
             f'{[[r[m]["launches"]["bev_splat"] for m in ("plan", "serve", "static")] for r in ranks]}'
-            f'; plan step p50 per rank {[round(r["plan_ms"], 2) for r in ranks]} ms against '
-            f'one process\'s {results[0]["bfloat16"]["one_ms"]:.2f} ms (ranks sharing one card '
-            f'over gloo: not a latency), on {card}')
+            f', on {card}')
     for res in results:
         for numbers in res.values():
             for split in numbers.values():
-                if not isinstance(split, dict):
-                    continue
                 for name in ('plan', 'serve', 'static'):
                     for kname, v in split[name]['launches'].items():
                         launches[kname] = launches.get(kname, 0) + v
@@ -3902,43 +2672,34 @@ def main() -> None:
         report[name] = {'per_frame': numbers}
     phase_parity(flagship_cfg(tiny=True), device)
     phase_train_parity(planning_cfg(tiny=True), device)
-    launches['serving'], _, _ = phase_flagship(cfg, device, card)
-    trainer, batches, launches['train'] = phase_train(train_cfg, device, card)
-    if '--profile' in sys.argv[1:]:
-        profile_train(trainer, batches, card)
-    del trainer, batches
+    launches['serving'], _, _ = phase_flagship(cfg, device)
+    *_, launches['train'] = phase_train(train_cfg, device, card)
     free_card()
     launches['train_graphs'] = phase_train_graphs(train_cfg, device, card)
     free_card()
     launches['remat'] = phase_remat(train_cfg, device, card)
     free_card()
-    launches['fused'], *flagship = phase_fused(cfg, device, card)
-    report['bev_splat']['agent'], per_tick, agent_p50, agent_model, cores = phase_agent(device,
-                                                                                        card)
+    launches['fused'], *flagship = phase_fused(cfg, device)
+    report['bev_splat']['agent'], per_tick, agent_model, cores = phase_agent(device, card)
     # the compiled serving calls on those models: the kernels in their graphs
-    graph_numbers = phase_graphs(flagship, agent_model, cores, card)
-    launches['graphs'] = {name: sum(n['launches'].get(name, 0) for n in graph_numbers.values())
+    graph_launches = phase_graphs(flagship, agent_model, cores, card)
+    launches['graphs'] = {name: sum(n.get(name, 0) for n in graph_launches.values())
                           for name in counters()}
     del flagship, agent_model, cores
     free_card()
     # the agent path: one steady tick of each of its three modes
     launches['agent'] = {name: sum(tick[name] for tick in per_tick.values())
                          for name in counters()}
-    for path, tag, steps in (('perception', 'perception', 10),
-                             ('perception_carla', 'perception carla', 6),
-                             ('prediction_ber', 'prediction_ber', 10)):
+    for path, tag in (('perception', 'perception'), ('perception_carla', 'perception carla'),
+                      ('prediction_ber', 'prediction_ber')):
         want = dict(bev_splat=1, gather_rows=1, convnext_mlp=2 if path == 'prediction_ber' else 0)
-        trainer, batches, launches[path] = phase_train(stages[path], device, card, tag, steps,
-                                                       **want)
-        if '--profile' in sys.argv[1:]:
-            profile_train(trainer, batches, card, tag=tag)
-        del trainer, batches
+        *_, launches[path] = phase_train(stages[path], device, card, tag, **want)
         free_card()
     launches['perception_bn'] = phase_perception_bn(
         stage_cfg('perception', False, {'MODEL': {'NORM': 'bn'}}), device, card)
     free_card()
     launches['bn_frozen'], _, _ = phase_flagship(
-        make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}), device, card, tag='bn_frozen')
+        make_cfg(FLAGSHIP, {'MODEL': {'NORM': 'bn_frozen'}}), device, tag='bn_frozen')
     ckpt, launches['train_cli'] = phase_train_cli(device, card, repo)
     launches['evaluate_planning'] = phase_evaluate('evaluate_planning', ckpt, device, card,
                                                    planning_result_keys(train_cfg))
@@ -3948,7 +2709,7 @@ def main() -> None:
         ['vehicle_iou', 'vehicle_pq', 'vehicle_sq', 'vehicle_rq'])
     phase_labels_as_prediction(*phase_decode(pred_ckpt, device, card), device, card)
     launches['reference_import'] = phase_reference_import(device, card, repo)
-    launches['carla_agent'] = phase_carla_agent(device, card, repo, per_tick, agent_p50)
+    launches['carla_agent'] = phase_carla_agent(device, card, repo, per_tick)
     launches.update(phase_real_data(repo, device, card))
     # data parallel and camera parallel: K1, K3 and K2 at the training shapes
     # of batch 2 ([dp nccl]) and of batch 1 (each rank of [dp 2 ranks]); K1 at
@@ -3977,8 +2738,7 @@ def main() -> None:
         paths = {path: dict(launches=launches[path][name], **report[name].get(path, {}))
                  for path in PATHS}
         paths['agent']['per_tick'] = {mode: tick[name] for mode, tick in per_tick.items()}
-        top = {k: paths[main_path][k] for k in ('launches', 'max_abs_err', 'ms', 'plain_ms',
-                                                'bound_ms', 'bound_by', 'library_ms')}
+        top = {k: paths[main_path][k] for k in ('launches', 'shape', 'max_abs_err')}
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces, **top,
                             main_path=main_path, paths=paths))
     say(json.dumps({'kernels': kernels}))

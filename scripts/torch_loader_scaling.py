@@ -6,8 +6,8 @@ worker processes, on the host of whatever machine runs it.
 
 For each dataset and worker count: ``prepare_dataloaders`` on the
 PIL-free stand-in tree of tests/torch_fake_datasets.py, at the
-configuration of chip_smoke.py's [nuscenes_data] path (the nuScenes
-Planning stage with LIFT.GT_DEPTH: 6 cameras at 1600x900 -> 224x480, 3
+configuration of chip_smoke.py's [nuscenes_data] path (tests/torch_fixtures.py:
+the nuScenes Planning stage with LIFT.GT_DEPTH: 6 cameras at 1600x900 -> 224x480, 3
 past and 6 future frames, the 200x200 BEV; 18 training windows) or its
 [carla_data] path (CARLA's Planning stage: 4 cameras at 400x300, 18
 windows), batch 2, ``WORKER_KIND process``. Two epochs: the first
@@ -44,8 +44,8 @@ def main(argv=None) -> None:
                         choices=['nuscenes', 'carla'])
     args = parser.parse_args(argv)
     sys.path[:0] = [REPO, os.path.join(REPO, 'tests')]
-    import chip_smoke as cs
     import torch_fake_datasets as fake
+    import torch_fixtures as fixtures
     from stp3_tpu_torch.datas.dataloaders import prepare_dataloaders
 
     root = os.path.join(REPO, 'build', 'loader_scaling')
@@ -54,13 +54,13 @@ def main(argv=None) -> None:
     fake.write_carla_route(root, n_frames=25, town='Town01_tiny')
     fake.write_carla_route(root, n_frames=9, town='Town05_short')
     configs = {
-        'nuscenes': (cs.PLANNING_STAGE, cs.NUSCENES_DATA,
+        'nuscenes': (fixtures.PLANNING_STAGE, fixtures.NUSCENES_DATA,
                      {'DATASET': {'VERSION': 'trainval', 'DATAROOT': root, 'MAP_FOLDER': root}}),
-        'carla': (cs.CARLA_PLANNING, cs.CARLA_DATA, {'DATASET': {'DATAROOT': root}})}
+        'carla': (fixtures.CARLA_PLANNING, fixtures.CARLA_DATA, {'DATASET': {'DATAROOT': root}})}
     print(f'host: {os.cpu_count()} cores ({len(os.sched_getaffinity(0))} usable)', flush=True)
     for name in args.dataset:
         for workers in args.workers:
-            cfg = cs.make_cfg(*configs[name], {'N_WORKERS': workers})
+            cfg = fixtures.make_cfg(*configs[name], {'N_WORKERS': workers})
             train, val = prepare_dataloaders(cfg)
             try:
                 n0, first, t0 = epoch(train)

@@ -61,7 +61,7 @@ from stp3_tpu_torch.ops.bev_pool import (discounted_accumulate, project_lift_spl
                                          project_to_birds_eye_view)
 from stp3_tpu_torch.ops.geometry import (calculate_birds_eye_view_parameters,
                                          create_frustum, get_geometry)
-from stp3_tpu_torch.ops.static_splat import column_splat, static_splat
+from stp3_tpu_torch.ops.static_splat import column_splat
 from stp3_tpu_torch.ops.warp import cumulative_warp_features
 from stp3_tpu_torch.utils import profiling
 from stp3_tpu_torch.utils.precision import pin_fp32_math
@@ -553,21 +553,16 @@ class STP3(nn.Module):
     def splat_single_frame_static(self, image, plan):
         """Encode and splat ONE frame with a plan precomputed from a fixed
         rig (``ops/static_splat.py``): no scatter kernel. plan is
-        ``ColumnSplatPlan.device_arrays(device)`` (a dict: per-column
-        products and a sorted segment sum) or
-        ``StaticSplatPlan.device_buckets(device)`` (a list: per-cell gather
-        buckets). Returns (bev, cam_front)."""
+        ``ColumnSplatPlan.device_arrays(device)`` (per-column products and a
+        sorted segment sum). Returns (bev, cam_front)."""
         c = self.cfg
         n = image.shape[1]
         feat, depth = self.encode_cameras(image)                     # (B,N,Hf,Wf,C)
         cam_front = feat[:, c.cam_front_index] if c.planning_enabled else None
         with profiling.stage('stp3.splat', feat):
             ctx, dp = context_depth_rays(c, feat, depth)
-            if isinstance(plan, dict):
-                _, hf, wf = self.frustum.shape[:3]
-                bev = column_splat(ctx, dp, plan, (n, hf, wf, c.depth_channels, c.bev_dimension))
-            else:
-                bev = static_splat(ctx, dp, plan, c.bev_dimension)
+            _, hf, wf = self.frustum.shape[:3]
+            bev = column_splat(ctx, dp, plan, (n, hf, wf, c.depth_channels, c.bev_dimension))
         return bev, cam_front
 
     def serve_step_static(self, image, future_egomotion, cached_bev, trajs, commands,

@@ -2,13 +2,12 @@
 
 Pre-warp every past frame's geometry into the present frame, voxelise,
 scatter-add each frame's points onto the grid, then accumulate the frames
-at ``discount``. ``method`` picks the scatter, as in the JAX package:
-'auto' and 'pallas2b' splat all B*S frames in one K1 launch
-(``ops/kernels/bev_splat``); 'pallas' and 'pallas2' launch K1 once per
-frame through its v1 / v2 entries; 'sort' and 'scatter' are the JAX
-package's XLA paths, plain PyTorch here. ``project_lift_splat_fused`` is
-the fused lift + splat: K4 (``ops/kernels/lift_splat``), one launch for
-all frames.
+at ``discount``. Every splat here is ``bev_splat`` (``ops/kernels/bev_splat``):
+K1 on CUDA tensors, one launch for all B*S frames, and K1's plain version
+on CPU tensors. The JAX package's other scatters (its ``method`` names:
+the per-frame Pallas entries and the XLA segment sums) compute the same
+function, so the port keeps one. ``project_lift_splat_fused`` is the fused
+lift + splat: K4 (``ops/kernels/lift_splat``), one launch for all frames.
 """
 from __future__ import annotations
 
@@ -18,13 +17,9 @@ import numpy as np
 import torch
 
 from stp3_tpu_torch.ops.geometry import cumulative_prewarp_transforms
-from stp3_tpu_torch.ops.kernels.bev_splat import (bev_pool_v1, bev_pool_v2, bev_splat,
-                                                 overflow_out_of_range)
+from stp3_tpu_torch.ops.kernels.bev_splat import bev_splat
 from stp3_tpu_torch.ops.kernels.lift_splat import lift_splat_frames
 from stp3_tpu_torch.utils.device import constant
-
-METHODS = ('auto', 'pallas2b', 'pallas', 'pallas2', 'sort', 'scatter')
-_PER_FRAME = {'pallas': bev_pool_v1, 'pallas2': bev_pool_v2}
 
 
 def voxelize_coords(points: torch.Tensor, bev_resolution, bev_start_position,
@@ -46,41 +41,17 @@ def ranks_of(coords: torch.Tensor, valid: torch.Tensor, bev_dimension) -> torch.
     return torch.where(valid, r, torch.full_like(r, nx * ny * nz))
 
 
-def _segment_sum(feats: torch.Tensor, ranks: torch.Tensor, ncells: int,
-                 sort: bool) -> torch.Tensor:
-    """The XLA paths' function: (F, P, C) rows summed per rank in their own
-    dtype onto ncells + 1 rows a frame (the last, the overflow row, dropped;
-    a rank outside [0, ncells) goes there, as JAX's ``segment_sum`` drops
-    it); ``sort`` orders the rows by rank first, as method 'sort' does."""
-    f, _, c = feats.shape
-    idx = (overflow_out_of_range(ranks, ncells)
-           + torch.arange(f, device=feats.device)[:, None] * (ncells + 1))
-    idx, rows = idx.reshape(-1), feats.reshape(-1, c)
-    if sort:
-        order = torch.argsort(idx, stable=True)
-        idx, rows = idx[order], rows[order]
-    acc = torch.zeros(f * (ncells + 1), c, dtype=feats.dtype, device=feats.device)
-    return acc.index_add_(0, idx, rows).reshape(f, ncells + 1, c)[:, :ncells]
-
-
 def bev_pool(feats: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
-             bev_dimension, method: str = 'sort') -> torch.Tensor:
+             bev_dimension) -> torch.Tensor:
     """Scatter-add one frame's point rows onto the BEV grid. feats (P, C);
-    coords (P, 3) int; valid (P,) bool. Returns (nx, ny, nz*C).
-    'pallas' and 'pallas2' are K1's v1 / v2 entries, 'sort' and 'scatter'
-    plain PyTorch."""
+    coords (P, 3) int; valid (P,) bool. Returns (nx, ny, nz*C): ``bev_splat``
+    at F=1."""
     nx, ny, nz = (int(v) for v in np.asarray(bev_dimension))
-    ncells = nx * ny * nz
     c = feats.shape[-1]
     ranks = ranks_of(coords.to(torch.int32), valid, bev_dimension).to(torch.int32)
     feats = torch.where(valid[:, None], feats, torch.zeros((), dtype=feats.dtype,
                                                           device=feats.device))
-    if method in _PER_FRAME:
-        out = _PER_FRAME[method](feats.contiguous(), ranks.contiguous(), ncells)
-    elif method in ('sort', 'scatter'):
-        out = _segment_sum(feats[None], ranks[None], ncells, method == 'sort')[0]
-    else:
-        raise ValueError(f'Unknown bev_pool method {method}')
+    out = bev_splat(feats[None].contiguous(), ranks[None].contiguous(), nx * ny * nz)[0]
     return out.reshape(nx, ny, nz * c)
 
 
@@ -123,27 +94,17 @@ def discounted_accumulate(splat: torch.Tensor, discount: float) -> torch.Tensor:
 def project_to_birds_eye_view(feats: torch.Tensor, geometry: torch.Tensor,
                               future_egomotion: torch.Tensor, bev_resolution,
                               bev_start_position, bev_dimension,
-                              discount: float = 0.5, method: str = 'auto') -> torch.Tensor:
+                              discount: float = 0.5) -> torch.Tensor:
     """feats (B, S, N, D, Hf, Wf, C) lifted features; geometry (B, S, N,
     D, Hf, Wf, 3) fp32 ego-frame points; future_egomotion (B, S, 6).
-    Returns (B, S, nx, ny, nz*C) in feats' dtype. ``method``: see the
-    module docstring."""
-    if method not in METHODS:
-        raise ValueError(f'Unknown bev_pool method {method}')
+    Returns (B, S, nx, ny, nz*C) in feats' dtype."""
     b, s = feats.shape[:2]
     c = feats.shape[-1]
     nx, ny, nz = (int(v) for v in np.asarray(bev_dimension))
     ncells = nx * ny * nz
     ranks = prewarped_ranks(geometry, future_egomotion, bev_resolution,
                             bev_start_position, bev_dimension)
-    flat = feats.reshape(b * s, -1, c).contiguous()
-    if method in ('auto', 'pallas2b'):
-        splat = bev_splat(flat, ranks, ncells)
-    elif method in _PER_FRAME:
-        splat = torch.stack([_PER_FRAME[method](flat[i], ranks[i], ncells)
-                             for i in range(b * s)])
-    else:
-        splat = _segment_sum(flat, ranks, ncells, method == 'sort')
+    splat = bev_splat(feats.reshape(b * s, -1, c).contiguous(), ranks, ncells)
     return discounted_accumulate(splat.reshape(b, s, nx, ny, nz * c), discount)
 
 

@@ -8,58 +8,28 @@ probability over a run [lo, hi) of bins is a difference of prefix sums,
 and the (rays * D)-point splat shrinks to the distinct (ray, cell)
 crossings.
 
-Two plans, as in the JAX package:
-- ``StaticSplatPlan``: cells bucketed by crossing count; each bucket is a
-  gather of prefix-sum differences and context rows, a weighted sum, and
-  an assignment to distinct cells.
-- ``ColumnSplatPlan``, the agent's default: per (image column, distinct
-  cell) a depth interval for every image row, so a column's cells are one
-  batched product over rows, and only ncols * rmax rows reach a sorted
-  segment sum (``index_add_``).
+The plan is the JAX package's ``ColumnSplatPlan``: per (image column,
+distinct cell) a depth interval for every image row, so a column's cells
+are one batched product over rows, and only ncols * rmax rows reach a
+sorted segment sum (``index_add_``). (The JAX package's bucketed plan,
+``StaticSplatPlan``, computes the same splat; the port keeps one.)
 
 Plans are built on the host in fp32 by the same geometry functions as the
 dynamic splat (``get_geometry``, ``voxelize_coords``, ``ranks_of``), so
 static and dynamic splats agree to float tolerance. The runtime products
-are plain ``torch.einsum`` / ``torch.matmul``: the JAX package computes them
-outside any Pallas kernel.
+are plain ``torch.einsum``: the JAX package computes them outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from stp3_tpu_torch.ops.bev_pool import ranks_of, voxelize_coords
 from stp3_tpu_torch.ops.geometry import get_geometry
-
-
-@dataclasses.dataclass(frozen=True)
-class SplatBucket:
-    """Cells with <= K crossings, padded to K (pad: ray 0, lo == hi -> w=0)."""
-    cells: np.ndarray      # (m,)   int32 flat cell ids
-    ray: np.ndarray        # (m, K) int32 ray index
-    lo: np.ndarray         # (m, K) int32 prefix-sum interval start
-    hi: np.ndarray         # (m, K) int32 prefix-sum interval end
-
-
-@dataclasses.dataclass(frozen=True)
-class StaticSplatPlan:
-    buckets: Tuple[SplatBucket, ...]
-    n_rays: int
-    depth_bins: int
-    bev_dimension: Tuple[int, int, int]
-
-    @property
-    def ncells(self) -> int:
-        nx, ny, nz = self.bev_dimension
-        return nx * ny * nz
-
-    def device_buckets(self, device) -> List[Tuple[torch.Tensor, ...]]:
-        """The buckets' (cells, ray, lo, hi) as int64 tensors on ``device``."""
-        return [tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
-                      for a in (bk.cells, bk.ray, bk.lo, bk.hi)) for bk in self.buckets]
 
 
 def _rig_runs(frustum, intrinsics, extrinsics, bev_resolution, bev_start_position,
@@ -102,58 +72,9 @@ def _rig_runs(frustum, intrinsics, extrinsics, bev_resolution, bev_start_positio
     return run_cell, run_ray, run_lo, run_hi, (n, d, hf, wf)
 
 
-def build_static_splat_plan(frustum, intrinsics, extrinsics, bev_resolution,
-                            bev_start_position, bev_dimension,
-                            bucket_caps: Sequence[int] = (4, 16, 64, 256, 1024, 8192),
-                            ) -> StaticSplatPlan:
-    """Precompute the point -> cell crossings of ONE camera rig, bucketed
-    by crossing count. frustum (D, Hf, Wf, 3); intrinsics (N, 3, 3);
-    extrinsics (N, 4, 4)."""
-    run_cell, run_ray, run_lo, run_hi, (n, d, hf, wf) = _rig_runs(
-        frustum, intrinsics, extrinsics, bev_resolution, bev_start_position,
-        bev_dimension)
-    bev_dim = tuple(int(v) for v in np.asarray(bev_dimension))
-
-    # group crossings by cell (stable: preserves ray-major order per cell)
-    order_x = np.argsort(run_cell, kind='stable')
-    cells_u, cell_off, counts = np.unique(run_cell[order_x], return_index=True,
-                                          return_counts=True)
-
-    buckets: List[SplatBucket] = []
-    caps = sorted(set(int(c) for c in bucket_caps))
-    if counts.max(initial=0) > caps[-1]:
-        caps.append(int(counts.max()))
-    csort = np.argsort(counts, kind='stable')
-    lo_i = 0
-    for cap in caps:
-        hi_i = np.searchsorted(counts[csort], cap, side='right')
-        sel = csort[lo_i:hi_i]
-        lo_i = hi_i
-        if sel.size == 0:
-            continue
-        m = sel.size
-        cnt = counts[sel]
-        ray = np.zeros((m, cap), np.int32)
-        lo = np.zeros((m, cap), np.int32)
-        hi = np.zeros((m, cap), np.int32)
-        # (row, col) of every crossing in the (m, cap) pad, gathered from the
-        # cell-sorted crossing list
-        rows = np.repeat(np.arange(m), cnt)
-        cols = np.arange(cnt.sum()) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        src = order_x[np.concatenate(
-            [np.arange(cell_off[c], cell_off[c] + counts[c]) for c in sel])]
-        ray[rows, cols] = run_ray[src]
-        lo[rows, cols] = run_lo[src]
-        hi[rows, cols] = run_hi[src]
-        buckets.append(SplatBucket(cells_u[sel].astype(np.int32), ray, lo, hi))
-
-    return StaticSplatPlan(tuple(buckets), n_rays=n * hf * wf, depth_bins=d,
-                           bev_dimension=bev_dim)
-
-
 @dataclasses.dataclass(frozen=True)
 class ColumnSplatPlan:
-    """Column-collapsed static splat plan (the fast path; see column_splat).
+    """Column-collapsed static splat plan (see column_splat).
 
     Per (column b, distinct cell slot r) a depth interval [lo, hi) for
     every row h (lo == hi where row h never crosses that cell), so
@@ -270,23 +191,3 @@ def column_splat(ctx: torch.Tensor, dp: torch.Tensor, arrays: Dict[str, torch.Te
     out.index_add_(1, arrays['cells_sorted'], vals)
     return out[:, :ncells].reshape(*lead, nx, ny, nz * c)
 
-
-def static_splat(ctx: torch.Tensor, dp: torch.Tensor, buckets,
-                 bev_dimension: Tuple[int, int, int]) -> torch.Tensor:
-    """Splat frames with precomputed crossing buckets.
-
-    ctx (..., rays, C) per-ray context (ray = n*Hf*Wf + h*Wf + w); dp
-    (..., rays, D) depth probabilities; buckets:
-    ``StaticSplatPlan.device_buckets``. Returns (..., nx, ny, nz*C)."""
-    nx, ny, nz = bev_dimension
-    ncells = nx * ny * nz
-    lead = ctx.shape[:-2]
-    c = ctx.shape[-1]
-    ctx2 = ctx.reshape(-1, *ctx.shape[-2:])
-    dp2 = dp.reshape(-1, *dp.shape[-2:])
-    s = torch.cat([torch.zeros_like(dp2[..., :1]), torch.cumsum(dp2, -1)], -1)
-    out = torch.zeros(ctx2.shape[0], ncells, c, dtype=ctx2.dtype, device=ctx2.device)
-    for cells, ray, lo, hi in buckets:
-        w = (s[:, ray, hi] - s[:, ray, lo]).to(ctx2.dtype)           # (F, m, K)
-        out[:, cells] = torch.einsum('fmk,fmkc->fmc', w, ctx2[:, ray])
-    return out.reshape(*lead, nx, ny, nz * c)

@@ -17,7 +17,7 @@ import sys
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 import torch_dist_worker as W
 from stp3_tpu_torch.parallel.launch import run_ranks
 
@@ -38,7 +38,7 @@ def ranks(tmp_path_factory):
 @pytest.fixture(scope='module')
 def want():
     cfg = W.cam_cfg()
-    return W.cam_calls(chip_smoke.build_model(cfg), cfg, None)
+    return W.cam_calls(torch_fixtures.build_model(cfg), cfg, None)
 
 
 def _assert_outputs(got: dict, ref: dict, what: str):

@@ -3,7 +3,7 @@ against the JAX package's (carla_agent.py), on the CPU, without CARLA or
 the leaderboard: the harness STP3Agent of each, set up from the same
 seeded reference-format checkpoint (imported by each package's own
 converter), driven through the same recorded ticks as 300x400 BGRA sensor
-data with gps, speed and imu (chip_smoke.bgra_tick; the set-up of
+data with gps, speed and imu (torch_fixtures.bgra_tick; the set-up of
 tests/test_agent.py:54-94 on the CARLA rig's camera names, so
 CAM_FRONT_PARITY is set on import). Warm-up ticks give zero control;
 planned ticks' steer and throttle agree at atol 1e-4 and brake is equal
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.models.stp3 import STP3Config as JCfg
 from stp3_tpu.training import checkpoint as jckpt
@@ -33,11 +33,11 @@ def checkpoints(tmp_path_factory):
     cameras at 64x64), imported into the port's format by its CLI and into
     an stp3_tpu checkpoint by stp3_tpu's converter, with the same config."""
     root = tmp_path_factory.mktemp('carla')
-    cfg = chip_smoke.make_cfg(chip_smoke.CARLA_PLANNING, chip_smoke.TINY_WIDTHS,
-                              {'PRECISION': 32, 'IMAGE': {
-                                  'FINAL_DIM': (64, 64),
-                                  'NAMES': ['front', 'left', 'right', 'rear']}})
-    chip_smoke.write_reference_checkpoint(cfg, str(root / 'ref.ckpt'), seed=5)
+    cfg = torch_fixtures.make_cfg(torch_fixtures.CARLA_PLANNING, torch_fixtures.TINY_WIDTHS,
+                                  {'PRECISION': 32, 'IMAGE': {
+                                      'FINAL_DIM': (64, 64),
+                                      'NAMES': ['front', 'left', 'right', 'rear']}})
+    torch_fixtures.write_reference_checkpoint(cfg, str(root / 'ref.ckpt'), seed=5)
     path, report = import_checkpoint(str(root / 'ref.ckpt'), str(root / 'port'),
                                      log=lambda msg: None)
     assert report.ok()
@@ -66,10 +66,10 @@ def test_harness_matches_the_jax_harness(checkpoints):
     controls = {name: [] for name in agents}
     n_ticks = checkpoints['rf'] + 4
     for name, agent in agents.items():
-        agent.set_global_plan(chip_smoke.AGENT_ROUTE)
-        for t, (frame, _, theta) in enumerate(chip_smoke.recorded_ticks(n_ticks)):
-            np.random.seed(chip_smoke.SEED + t)        # the sampler's module RNG
-            controls[name].append(agent.run_step(chip_smoke.bgra_tick(t, frame, theta), t))
+        agent.set_global_plan(torch_fixtures.AGENT_ROUTE)
+        for t, (frame, _, theta) in enumerate(torch_fixtures.recorded_ticks(n_ticks)):
+            np.random.seed(torch_fixtures.SEED + t)        # the sampler's module RNG
+            controls[name].append(agent.run_step(torch_fixtures.bgra_tick(t, frame, theta), t))
     n_warm = checkpoints['rf'] + 1
     for name, run in controls.items():
         assert run[:n_warm] == [ZERO] * n_warm, name
@@ -91,8 +91,8 @@ def test_harness_runs_on_the_card_unless_told(checkpoints, monkeypatch, tmp_path
     monkeypatch.setenv('SAVE_PATH', str(tmp_path))
     agent = tagent.STP3Agent()
     agent.setup(checkpoints['port'], device='cpu')
-    agent.set_global_plan(chip_smoke.AGENT_ROUTE)
-    for t, (frame, _, theta) in enumerate(chip_smoke.recorded_ticks(11)):
-        agent.run_step(chip_smoke.bgra_tick(t, frame, theta))
+    agent.set_global_plan(torch_fixtures.AGENT_ROUTE)
+    for t, (frame, _, theta) in enumerate(torch_fixtures.recorded_ticks(11)):
+        agent.run_step(torch_fixtures.bgra_tick(t, frame, theta))
     written = sorted(p.name for p in tmp_path.glob('*/meta/*.json'))
     assert written == ['000010.json']

@@ -28,7 +28,7 @@ import pytest
 import torch
 from PIL import Image
 
-import chip_smoke
+import torch_fixtures
 import torch_fake_datasets
 from helpers import make_test_cfg
 from stp3_tpu.config import get_cfg as jax_get_cfg
@@ -112,7 +112,7 @@ def test_getitem_matches_jax_on_the_pil_route(tmp_path):
 
 def test_getitem_matches_jax_at_the_planning_stage_on_the_stand_in(tmp_path):
     torch_fake_datasets.write_carla_route(str(tmp_path), n_frames=9)
-    tcfg = chip_smoke.carla_planning_cfg()
+    tcfg = torch_fixtures.carla_planning_cfg()
     jcfg = jax_get_cfg(cfg_dict=tcfg.convert_to_dict())
     tds = tcd.CarlaDataset(str(tmp_path), False, tcfg)       # scans and writes the cache
     jds = jcd.CarlaDataset(str(tmp_path), False, jcfg)       # reads it

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu_torch.models.stp3 import STP3, STP3Config
 from stp3_tpu_torch.training import checkpoint as ck
 from stp3_tpu_torch.training.trainer import Trainer
@@ -25,9 +25,10 @@ assert jax_norm_defaults            # the autouse fixture, imported to take effe
 
 CASES = {
     # the latent draw and dropout come from the trainer's generator
-    'planning': lambda: chip_smoke.planning_cfg(tiny=True),
+    'planning': lambda: torch_fixtures.planning_cfg(tiny=True),
     # 'bn': running statistics move every step
-    'perception_bn': lambda: chip_smoke.stage_cfg('perception', True, {'MODEL': {'NORM': 'bn'}}),
+    'perception_bn': lambda: torch_fixtures.stage_cfg('perception', True,
+                                                      {'MODEL': {'NORM': 'bn'}}),
 }
 
 
@@ -59,7 +60,7 @@ def _save(trainer, ckpt_dir, metrics=None):
 def test_save_load_round_trip_is_bit_equal(case, tmp_path):
     cfg = CASES[case]()
     trainer = Trainer(cfg, device='cpu', seed=0)
-    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    batch, = torch_fixtures.synthetic_batches(cfg, 1, 'cpu')
     trainer.train_step(batch)
     path = _save(trainer, str(tmp_path))
     state = ck.load_checkpoint(path)
@@ -80,7 +81,7 @@ def test_resume_equals_uninterrupted(case, tmp_path):
     """Dropout on: the generator's state decides the masks (and the
     Planning stage's latent draw) of the steps after the resume."""
     cfg = CASES[case]()
-    batches = chip_smoke.synthetic_batches(cfg, 4, 'cpu')
+    batches = torch_fixtures.synthetic_batches(cfg, 4, 'cpu')
     straight = Trainer(cfg, device='cpu', seed=0)
     for batch in batches[:2]:
         straight.train_step(batch)
@@ -95,7 +96,7 @@ def test_resume_equals_uninterrupted(case, tmp_path):
 
 
 def test_unstamped_and_newer_checkpoints_are_refused(tmp_path):
-    trainer = Trainer(chip_smoke.planning_cfg(tiny=True), device='cpu', seed=0)
+    trainer = Trainer(torch_fixtures.planning_cfg(tiny=True), device='cpu', seed=0)
     path = _save(trainer, str(tmp_path))
     os.remove(os.path.join(path, 'meta.json'))
     with pytest.raises(ValueError, match='no meta.json format stamp'):
@@ -109,7 +110,7 @@ def test_unstamped_and_newer_checkpoints_are_refused(tmp_path):
 
 
 def test_caller_metrics_cannot_overwrite_the_version_stamp(tmp_path):
-    trainer = Trainer(chip_smoke.planning_cfg(tiny=True), device='cpu', seed=0)
+    trainer = Trainer(torch_fixtures.planning_cfg(tiny=True), device='cpu', seed=0)
     trainer.step = 7
     path = _save(trainer, str(tmp_path), {'format_version': 99, 'step': -1, 'best_iou': 0.25,
                                           'per_class': np.array([0.5, 0.75])})
@@ -125,9 +126,9 @@ def test_warm_start_drops_the_decoder_and_mismatched_entries():
     every shared entry of the same shape but the decoder's comes from
     the Perception weights; the decoder, the entries Perception lacks and
     those of another shape (a wider temporal model here) keep their init."""
-    plan_cfg = chip_smoke.planning_cfg(tiny=True)
-    perc_cfg = chip_smoke.stage_cfg('perception', True,
-                                    {'MODEL': {'TEMPORAL_MODEL': {'START_OUT_CHANNELS': 24}}})
+    plan_cfg = torch_fixtures.planning_cfg(tiny=True)
+    perc_cfg = torch_fixtures.stage_cfg('perception', True,
+                                        {'MODEL': {'TEMPORAL_MODEL': {'START_OUT_CHANNELS': 24}}})
     init = Trainer(plan_cfg, device='cpu', seed=0).model.state_dict()
     restored = Trainer(perc_cfg, device='cpu', seed=1).model.state_dict()
     merged, n = ck.filter_warm_start_params(restored, init)
@@ -150,7 +151,7 @@ def test_split_and_merge_bn_round_trip_into_bn_frozen():
     on its running statistics."""
     cfg = CASES['perception_bn']()
     trainer = Trainer(cfg, device='cpu', seed=0)
-    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    batch, = torch_fixtures.synthetic_batches(cfg, 1, 'cpu')
     trainer.train_step(batch)
     state = trainer.model.state_dict()
     params, stats = ck.split_frozen_bn(state)
@@ -180,7 +181,7 @@ def test_split_frozen_bn_splits_the_entries_jax_splits():
     separator)."""
     from stp3_tpu.training.checkpoint import split_frozen_bn as jax_split
     from stp3_tpu_torch.utils.from_flax import flatten_tree
-    cfg = chip_smoke.stage_cfg('perception', True, {'MODEL': {'NORM': 'bn_frozen'}})
+    cfg = torch_fixtures.stage_cfg('perception', True, {'MODEL': {'NORM': 'bn_frozen'}})
     jm, _ = jax_model(cfg)
     variables = seeded_variables(jm, inputs_of(cfg))
     jparams, jstats = jax_split(variables['params'])

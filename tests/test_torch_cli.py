@@ -28,7 +28,7 @@ import pytest
 import torch
 import yaml
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.datas.synthetic import NumpyLoader as JNumpyLoader
 from stp3_tpu.datas.synthetic import SyntheticDataset as JSyntheticDataset
 from stp3_tpu.config import get_cfg as jax_get_cfg
@@ -47,8 +47,8 @@ PLANNING_KEYS = {'vehicle_iou', 'pedestrian_iou', 'lane_divider_iou', 'drivable_
 
 
 def tiny_cfg():
-    return chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY, {'PRECISION': 32},
-                               DATA)
+    return torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.TINY,
+                                   {'PRECISION': 32}, DATA)
 
 
 def _config_file(tmp_path, cfg):
@@ -150,7 +150,7 @@ def test_numpy_loader_matches_jax_on_a_ragged_rank_world_split(kw):
     """7 samples, 3 processes of batch 2 (global batch 6): the second
     global batch holds one real row and five wrap-around duplicates;
     shuffled, two epochs, every rank."""
-    cfg = chip_smoke.planning_cfg(tiny=True)
+    cfg = torch_fixtures.planning_cfg(tiny=True)
     ds, jds = SyntheticDataset(cfg, 7, seed=2), JSyntheticDataset(
         jax_get_cfg(cfg_dict=cfg.convert_to_dict()), 7, seed=2)
     valid = []

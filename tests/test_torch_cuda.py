@@ -341,15 +341,15 @@ def test_batch_norm_model_on_the_card_matches_the_cpu(cuda, kind):
     1e-4, atol 1e-5."""
     import copy
 
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.layers.base import init_parameters
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
     from stp3_tpu_torch.utils.precision import pin_fp32_math
     pin_fp32_math()
-    cfg = chip_smoke.stage_cfg('perception', True, {'MODEL': {'NORM': kind}})
+    cfg = torch_fixtures.stage_cfg('perception', True, {'MODEL': {'NORM': kind}})
     cpu = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).to(cuda)
-    inputs = chip_smoke.example_inputs(cfg, b=2)[0]
+    inputs = torch_fixtures.example_inputs(cfg, b=2)[0]
     outs = {}
     for name, model, dev in (('cpu', cpu, 'cpu'), ('cuda', gpu, cuda)):
         args = [torch.as_tensor(a, device=dev) for a in inputs]
@@ -372,22 +372,22 @@ def test_imported_reference_checkpoint_on_the_card_matches_the_cpu(cuda, tmp_pat
     import_torch_checkpoint, loaded on both devices in fp32 (TF32 off):
     every head at atol 2e-3, rtol 1e-3, and the planner's refined
     trajectory on the same arguments."""
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.config import get_cfg
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
     from stp3_tpu_torch.scripts.import_torch_checkpoint import import_checkpoint
     from stp3_tpu_torch.training import checkpoint as ckpt_lib
     from stp3_tpu_torch.utils.precision import pin_fp32_math
     pin_fp32_math()
-    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY_WIDTHS,
-                              {'PRECISION': 32})
-    chip_smoke.write_reference_checkpoint(cfg, str(tmp_path / 'ref.ckpt'))
+    cfg = torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.TINY_WIDTHS,
+                                  {'PRECISION': 32})
+    torch_fixtures.write_reference_checkpoint(cfg, str(tmp_path / 'ref.ckpt'))
     path, report = import_checkpoint(str(tmp_path / 'ref.ckpt'), str(tmp_path / 'out'),
                                      log=lambda msg: None)
     assert report.ok()
     mcfg = STP3Config.from_cfg(get_cfg(cfg_dict=ckpt_lib.load_config_dict(path)))
     assert mcfg.norm == 'bn_frozen'
-    (image, k, e, ego), ex = chip_smoke.example_inputs(cfg)
+    (image, k, e, ego), ex = torch_fixtures.example_inputs(cfg)
     rf = cfg.TIME_RECEPTIVE_FIELD
     outs = {}
     for dev in ('cpu', cuda):
@@ -498,12 +498,12 @@ def tiny_agent():
     weights; TF32 off."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (CUDA graphs have no CPU mode)')
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.layers.base import init_parameters
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
     from stp3_tpu_torch.utils.precision import pin_fp32_math
     pin_fp32_math()
-    cfg = chip_smoke.make_cfg(chip_smoke.TINY, {
+    cfg = torch_fixtures.make_cfg(torch_fixtures.TINY, {
         'BATCHSIZE': 1, 'PRECISION': 32,
         'IMAGE': {'FINAL_DIM': (64, 64), 'NAMES': ['A', 'B', 'C', 'D']}})
     model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
@@ -604,10 +604,10 @@ def test_compiled_parameters_new_shapes_and_moved_storage(cuda):
 
 # ------------------------------------- compiled training calls (CUDA graphs)
 def _train_cfg(precision: int = 32, remat: str = 'encoder'):
-    """The tiny Planning stage (chip_smoke.planning_cfg(tiny=True)); in bf16
+    """The tiny Planning stage (torch_fixtures.planning_cfg(tiny=True)); in bf16
     with the temporal width at 64, K2's."""
-    import chip_smoke
-    cfg = chip_smoke.planning_cfg(tiny=True)
+    import torch_fixtures
+    cfg = torch_fixtures.planning_cfg(tiny=True)
     cfg.PRECISION = precision
     cfg.MODEL.REMAT = remat
     if precision == 16:
@@ -621,7 +621,7 @@ def tiny_train():
     synthetic batches of each on the card; TF32 off."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (CUDA graphs have no CPU mode)')
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.layers.base import init_parameters
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
     from stp3_tpu_torch.utils.precision import pin_fp32_math
@@ -631,7 +631,7 @@ def tiny_train():
         cfg = _train_cfg(precision)
         model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
         out[precision] = ({k: v.clone() for k, v in model.state_dict().items()},
-                          chip_smoke.synthetic_batches(cfg, 2, 'cuda'))
+                          torch_fixtures.synthetic_batches(cfg, 2, 'cuda'))
     return out
 
 

@@ -1,6 +1,6 @@
 """The port's own config, data and input modules against their stp3_tpu
 counterparts: the config tree (defaults, every shipped YAML, the dict
-round trip, CLI overrides), chip_smoke.py's in-code configurations (the
+round trip, CLI overrides), tests/torch_fixtures.py's in-code configurations (the
 flagship, the nuScenes and the CARLA Planning stages), the synthetic
 batch (byte for byte), the trajectory sampler, the instance labels and
 the image preparation."""
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from __graft_entry__ import _flagship_cfg
 from stp3_tpu import config as jconfig
 from stp3_tpu.datas import synthetic as jsyn
@@ -61,39 +61,39 @@ def test_dict_round_trip_and_cli_overrides_match():
 
 
 @pytest.mark.parametrize('tiny', [False, True])
-def test_chip_smoke_flagship_cfg_is_the_graft_entry_one(tiny):
-    assert (chip_smoke.flagship_cfg(tiny).convert_to_dict()
+def test_torch_fixtures_flagship_cfg_is_the_graft_entry_one(tiny):
+    assert (torch_fixtures.flagship_cfg(tiny).convert_to_dict()
             == _flagship_cfg(tiny).convert_to_dict())
 
 
-def test_chip_smoke_planning_cfg_is_planning_yml():
-    """chip_smoke.py's Planning overrides, as code, against Planning.yml
+def test_torch_fixtures_planning_cfg_is_planning_yml():
+    """tests/torch_fixtures.py's Planning overrides, as code, against Planning.yml
     through the port's loader. YAML 1.1 reads '2e-4' (no dot) as a string;
     both trainers take float(OPTIMIZER.LR), so the LR compares as a float."""
     want = tconfig.get_cfg(_args(os.path.join(
         REPO, 'stp3_tpu', 'configs', 'nuscenes', 'Planning.yml'))).convert_to_dict()
-    got = chip_smoke.planning_cfg().convert_to_dict()
+    got = torch_fixtures.planning_cfg().convert_to_dict()
     assert want['OPTIMIZER']['LR'] == '2e-4'
     want['OPTIMIZER']['LR'] = float(want['OPTIMIZER']['LR'])
     assert got == want
-    tiny = chip_smoke.planning_cfg(tiny=True)
+    tiny = torch_fixtures.planning_cfg(tiny=True)
     assert tiny.PRECISION == 32 and tiny.MODEL.REMAT == 'encoder' and tiny.BATCHSIZE == 2
 
 
-def test_chip_smoke_carla_cfg_is_carla_planning_yml():
-    """The agent phase's CARLA_PLANNING overrides, as code, against
+def test_torch_fixtures_carla_cfg_is_carla_planning_yml():
+    """The agent's CARLA_PLANNING overrides, as code, against
     stp3_tpu/configs/carla/Planning.yml through the port's loader (the LR
     compares as a float, as in the Planning check above)."""
     want = tconfig.get_cfg(_args(os.path.join(
         REPO, 'stp3_tpu', 'configs', 'carla', 'Planning.yml'))).convert_to_dict()
-    got = chip_smoke.carla_planning_cfg().convert_to_dict()
+    got = torch_fixtures.carla_planning_cfg().convert_to_dict()
     want['OPTIMIZER']['LR'] = float(want['OPTIMIZER']['LR'])
     assert got == want
     assert got['IMAGE']['FINAL_DIM'] == (256, 256) and got['PLANNING']['SAMPLE_NUM'] == 2400
 
 
 def test_synthetic_batch_is_byte_equal():
-    cfg = chip_smoke.planning_cfg(tiny=True)
+    cfg = torch_fixtures.planning_cfg(tiny=True)
     jcfg = jconfig.get_cfg(cfg_dict=cfg.convert_to_dict())
     for seed, idx in ((0, (0, 1)), (3, (5, 2))):
         got = tsyn.collate([tsyn.SyntheticDataset(cfg, 8, seed)[i] for i in idx])

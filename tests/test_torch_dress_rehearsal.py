@@ -17,7 +17,7 @@ import sys
 import numpy as np
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu_torch.config import get_cfg
 from stp3_tpu_torch.scripts import dress_rehearsal
 
@@ -32,7 +32,7 @@ def test_dress_rehearsal_end_to_end(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     cfg = get_cfg(cfg_dict=None)
     cfg.merge_from_list(dress_rehearsal.tiny_cfg_opts(''))
-    keys = set(chip_smoke.planning_result_keys(cfg))           # evaluate.py:126-140
+    keys = set(torch_fixtures.planning_result_keys(cfg))           # evaluate.py:126-140
     keys |= {f'vehicle_{k}' for k in ('pq', 'sq', 'rq')} if cfg.INSTANCE_SEG.ENABLED else set()
     assert set(results) == keys and any(k.startswith('plan_L2') for k in keys)
     assert all(np.isfinite(v) for v in results.values())

@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu.training.trainer import Trainer as JTrainer
 from stp3_tpu_torch.evaluate import evaluate
@@ -43,9 +43,10 @@ assert jax_norm_defaults            # the autouse fixture, imported to take effe
 # three validation samples: the first has no vehicle in view, the others do
 DATA = {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini', 'VAL_SAMPLES': 3},
         'N_WORKERS': 0, 'BATCHSIZE': 1, 'MODEL': {'REMAT': 'none'}}
-STAGES = {'planning': lambda: chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY,
-                                                  {'PRECISION': 32}, DATA),
-          'prediction': lambda: chip_smoke.stage_cfg('prediction', True, DATA)}
+STAGES = {'planning': lambda: torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE,
+                                                      torch_fixtures.TINY, {'PRECISION': 32},
+                                                      DATA),
+          'prediction': lambda: torch_fixtures.stage_cfg('prediction', True, DATA)}
 # heads whose argmax feeds a metric: (key, channel slices)
 HEADS = {'segmentation': [slice(0, 2)], 'pedestrian': [slice(0, 2)],
          'hdmap': [slice(0, 2), slice(2, 4)]}
@@ -59,7 +60,7 @@ def stage(name):
     jm, jcfg = jax_model(cfg)
     extras = None
     if cfg.PLANNING.ENABLED:
-        extras = {k: np.asarray(v) for k, v in chip_smoke.example_inputs(cfg)[1].items()}
+        extras = {k: np.asarray(v) for k, v in torch_fixtures.example_inputs(cfg)[1].items()}
     variables = seeded_variables(jm, inputs_of(cfg, b=1), extras=extras)
     ds = SyntheticDataset(jcfg, n_samples=3, seed=1)
     batches = [collate([ds[i]]) for i in range(3)]

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu.training.trainer import Trainer as JTrainer
 from stp3_tpu.utils import torch_import as jti
@@ -32,8 +32,8 @@ FORWARD_KEYS = ('image', 'intrinsics', 'extrinsics', 'future_egomotion')
 
 
 def gt_depth_cfg():
-    return chip_smoke.stage_cfg('perception', True, {'TIME_RECEPTIVE_FIELD': 2},
-                                {'LIFT': {'GT_DEPTH': True}})
+    return torch_fixtures.stage_cfg('perception', True, {'TIME_RECEPTIVE_FIELD': 2},
+                                    {'LIFT': {'GT_DEPTH': True}})
 
 
 @pytest.fixture(scope='module')

@@ -3,7 +3,7 @@ utils/from_flax.to_flax and the three stp3_tpu_torch.scripts CLIs)
 against stp3_tpu's converter and against real torch.nn layers, on the CPU.
 
 The reference-format state dicts are made from a seed
-(chip_smoke.reference_state_dict: the port's synthesize_state_dict with
+(torch_fixtures.reference_state_dict: the port's synthesize_state_dict with
 the BN statistics and every constant vector redrawn), so a swapped mean
 and variance, a transposed kernel or a misplaced bias changes the
 outputs. Tolerances: the layers against torch.nn at atol 1e-5 (rtol 1e-4
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.models.stp3 import STP3 as JSTP3
 from stp3_tpu.models.stp3 import STP3Config as JCfg
@@ -50,7 +50,7 @@ STAGE_YAMLS = ('nuscenes/Perception.yml', 'nuscenes/Prediction.yml',
                'nuscenes/Prediction_Ber.yml', 'nuscenes/Planning.yml', 'carla/Perception.yml',
                'carla/Prediction.yml', 'carla/Planning.yml')
 BN_FROZEN = {'MODEL': {'NORM': 'bn_frozen'}}
-TINY_FP32 = {**chip_smoke.TINY_WIDTHS, 'PRECISION': 32}
+TINY_FP32 = {**torch_fixtures.TINY_WIDTHS, 'PRECISION': 32}
 
 
 def flat_equal(got, want):
@@ -65,8 +65,8 @@ def flat_equal(got, want):
 def stage_cfg(stage):
     """A stage's tiny fp32 config under 'bn_frozen' at a receptive field of 2."""
     if stage == 'planning':
-        return chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, TINY_FP32, BN_FROZEN)
-    return chip_smoke.stage_cfg(stage, True, {'TIME_RECEPTIVE_FIELD': 2}, BN_FROZEN)
+        return torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, TINY_FP32, BN_FROZEN)
+    return torch_fixtures.stage_cfg(stage, True, {'TIME_RECEPTIVE_FIELD': 2}, BN_FROZEN)
 
 
 def jax_cfg(cfg):
@@ -241,7 +241,7 @@ def test_imported_layer_matches_torch_nn(name):
         exported.update(zip(e.torch_keys, e.exp([ti._get(back, p) for p in e.flax_paths])))
     want_sd = {k: v.numpy() for k, v in sd.items() if k in exported}
     if name == 'GRUCell':
-        want_sd['t.bias_ih'], want_sd['t.bias_hh'] = chip_smoke.gru_fold(want_sd, 't')
+        want_sd['t.bias_ih'], want_sd['t.bias_hh'] = torch_fixtures.gru_fold(want_sd, 't')
     assert sorted(exported) == sorted(want_sd)
     for k, v in want_sd.items():
         np.testing.assert_array_equal(exported[k], v, err_msg=k)
@@ -273,7 +273,7 @@ def test_imported_reference_state_dict_matches_jax(stage):
     trajectory on the same arguments."""
     cfg = stage_cfg(stage)
     mcfg = STP3Config.from_cfg(cfg)
-    sd = chip_smoke.reference_state_dict(mcfg, seed=1)
+    sd = torch_fixtures.reference_state_dict(mcfg, seed=1)
     params, report = ti.import_state_dict(sd, mcfg)
     assert report.ok() and report.converted == len(flatten_tree(params))
     jmc = jax_cfg(cfg)
@@ -282,7 +282,7 @@ def test_imported_reference_state_dict_matches_jax(stage):
     flat_equal(params, jparams)
 
     inputs = inputs_of(cfg, b=1)
-    _, ex = chip_smoke.example_inputs(cfg)
+    _, ex = torch_fixtures.example_inputs(cfg)
     out_j, plan_args, traj_j = _jax_outputs(cfg, jmc, jparams, inputs, ex)
     model = load_flax_params(STP3(mcfg), params).eval()
     with torch.no_grad():
@@ -300,7 +300,7 @@ def test_export_matches_jax_and_gives_back_the_input():
     GRU's r / z biases as their fold)."""
     cfg = stage_cfg('planning')
     mcfg = STP3Config.from_cfg(cfg)
-    sd = chip_smoke.reference_state_dict(mcfg, seed=2)
+    sd = torch_fixtures.reference_state_dict(mcfg, seed=2)
     params, _ = ti.import_state_dict(sd, mcfg)
     got, want = ti.export_state_dict(params, mcfg), jti.export_state_dict(params, jax_cfg(cfg))
     assert list(got) == list(want)
@@ -311,7 +311,7 @@ def test_export_matches_jax_and_gives_back_the_input():
     back = ti.export_state_dict(to_flax(model)['params'], mcfg)
     expected = dict(sd)
     gru = 'model.planning.GRU'
-    expected[f'{gru}.bias_ih'], expected[f'{gru}.bias_hh'] = chip_smoke.gru_fold(sd, gru)
+    expected[f'{gru}.bias_ih'], expected[f'{gru}.bias_hh'] = torch_fixtures.gru_fold(sd, gru)
     assert not np.array_equal(expected[f'{gru}.bias_hh'], sd[f'{gru}.bias_hh'])
     assert sorted(back) == sorted(expected)
     for k, v in expected.items():
@@ -322,8 +322,9 @@ def test_export_matches_jax_and_gives_back_the_input():
 def test_to_flax_inverts_the_load(norm):
     """to_flax(load_flax_variables(m, v)) == v bit for bit: 'params' and,
     under 'bn', 'batch_stats'."""
-    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, TINY_FP32, {'MODEL': {'NORM': norm}})
-    inputs, ex = chip_smoke.example_inputs(cfg)
+    cfg = torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, TINY_FP32,
+                                  {'MODEL': {'NORM': norm}})
+    inputs, ex = torch_fixtures.example_inputs(cfg)
     jm = JSTP3(jax_cfg(cfg))
     extras = {k: ex[k] for k in ('trajs', 'gt_trajs', 'commands', 'target_points')}
     variables = seeded_variables(jm, [np.asarray(a) for a in inputs], seed=3, extras=extras)
@@ -383,8 +384,8 @@ def test_backbone_import_matches_jax(oracle_class, arch):
 # --------------------------------------------------------------------- CLIs
 def cli_cfg(*overrides):
     """The tiny Planning stage with the CLI paths' synthetic data, fp32."""
-    return chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.CLI_DATA, TINY_FP32,
-                               *overrides)
+    return torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.CLI_DATA,
+                                   TINY_FP32, *overrides)
 
 
 @pytest.fixture(scope='module')
@@ -392,7 +393,7 @@ def imported(tmp_path_factory):
     """A reference .ckpt of the tiny Planning stage and its import by the CLI."""
     root = tmp_path_factory.mktemp('imported')
     cfg = cli_cfg()
-    sd, bookkeeping = chip_smoke.write_reference_checkpoint(cfg, str(root / 'ref.ckpt'))
+    sd, bookkeeping = torch_fixtures.write_reference_checkpoint(cfg, str(root / 'ref.ckpt'))
     lines = []
     path, report = import_torch_checkpoint.import_checkpoint(
         str(root / 'ref.ckpt'), str(root / 'ckpt'), log=lines.append)
@@ -428,7 +429,7 @@ def test_import_cli_then_evaluate(imported, capsys):
         assert torch.equal(v, state['model'][k]), k
 
     results = evaluate(imported['path'], device='cpu', log=lambda msg: None)
-    assert sorted(results) == sorted(chip_smoke.planning_result_keys(imported['cfg']))
+    assert sorted(results) == sorted(torch_fixtures.planning_result_keys(imported['cfg']))
     assert all(np.isfinite(v) for v in results.values())
 
 
@@ -440,8 +441,8 @@ def test_export_cli_round_trip(imported):
     out = str(imported['root'] / 'exported.ckpt')
     export_torch_checkpoint.main(['--checkpoint', imported['path'], '--output', out])
     blob = torch.load(out, map_location='cpu', weights_only=True)
-    chip_smoke.check_export(imported['sd'], imported['bookkeeping'], blob['state_dict'],
-                            imported['cfg'])
+    torch_fixtures.check_export(imported['sd'], imported['bookkeeping'], blob['state_dict'],
+                                imported['cfg'])
     hp = blob['hyper_parameters']
     assert 'NORM' not in hp['MODEL'] and 'VAL_SAMPLES' not in hp['DATASET']
     mcfg = imported['mcfg']
@@ -478,10 +479,10 @@ def test_export_cli_folds_bn_and_refuses_gn(imported, tmp_path):
 def test_import_cli_sets_cam_front_parity_for_the_carla_rig(tmp_path):
     """The CARLA rig (front camera at index 0): CAM_FRONT_PARITY set,
     printed and saved, so the planner reads camera 1 as the reference's."""
-    cfg = chip_smoke.make_cfg(chip_smoke.CARLA_PLANNING, TINY_FP32,
-                              {'IMAGE': {'FINAL_DIM': (32, 32),
-                                         'NAMES': ['front', 'left', 'right', 'rear']}})
-    chip_smoke.write_reference_checkpoint(cfg, str(tmp_path / 'carla.ckpt'))
+    cfg = torch_fixtures.make_cfg(torch_fixtures.CARLA_PLANNING, TINY_FP32,
+                                  {'IMAGE': {'FINAL_DIM': (32, 32),
+                                             'NAMES': ['front', 'left', 'right', 'rear']}})
+    torch_fixtures.write_reference_checkpoint(cfg, str(tmp_path / 'carla.ckpt'))
     lines = []
     path, report = import_torch_checkpoint.import_checkpoint(
         str(tmp_path / 'carla.ckpt'), str(tmp_path / 'out'), log=lines.append)

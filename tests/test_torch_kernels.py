@@ -97,8 +97,8 @@ def test_atomic_rows_per_landed_point_on_the_flagship_rig():
     40,000 cells): a tile of 2,048 points holds ~0.068 distinct ranks per
     landed point (the figure K1's design rests on), ~0.91 runs of equal
     consecutive ranks."""
-    import chip_smoke
-    ranks, ncells = chip_smoke.splat_ranks(chip_smoke.flagship_cfg(), 'cpu')
+    import torch_fixtures
+    ranks, ncells = torch_fixtures.splat_ranks(torch_fixtures.flagship_cfg(), 'cpu')
     assert tuple(ranks.shape) == (3, 483840) and ncells == 40000
     assert abs(K1.atomic_rows_per_landed_point(ranks, ncells, 2048) - 0.068) <= 0.005
     lands = ranks < ncells
@@ -114,9 +114,10 @@ def test_lift_splat_fold_rate_on_the_flagship_rig(monkeypatch):
     consecutive points (kThreads x kItems in csrc/lift_splat.cu) holds at
     most 0.1 distinct ranks per landed point (0.093): one run, one vector
     atomic per 4 channels, per ~11 landed points."""
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.ops import bev_pool
-    geometry, ego, (res, start, dim) = chip_smoke.rig_geometry(chip_smoke.flagship_cfg(), 'cpu')
+    geometry, ego, (res, start, dim) = torch_fixtures.rig_geometry(
+        torch_fixtures.flagship_cfg(), 'cpu')
     b, s, n, d, hf, wf, _ = geometry.shape
     seen = {}
 
@@ -431,8 +432,9 @@ _FOREIGN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'stp3_tpu', '__graft_entr
 def test_port_imports_no_jax_or_flax():
     """In a fresh interpreter (this one imported jax in conftest.py): the
     port's modules, the weight-interchange CLIs and the CARLA agent among
-    them, and the datasets with their image I/O and the PIL-free stand-in
-    data of tests/torch_fake_datasets.py, the data-parallel and
+    them, and the datasets with their image I/O, the PIL-free stand-in
+    data of tests/torch_fake_datasets.py and the configurations of
+    tests/torch_fixtures.py, the data-parallel and
     camera-parallel modules and their test ranks
     (tests/torch_dist_worker.py), the visualisation, profiling and Kalman
     utilities, the stage stamp and the benchmark's span readers and the
@@ -446,7 +448,7 @@ def test_port_imports_no_jax_or_flax():
         'import stp3_tpu_torch, stp3_tpu_torch.models.stp3, stp3_tpu_torch.utils.from_flax\n'
         'import stp3_tpu_torch.ops.kernels.bev_splat, stp3_tpu_torch.ops.kernels.convnext_mlp\n'
         'import stp3_tpu_torch.training.trainer, stp3_tpu_torch.datas.synthetic\n'
-        'import stp3_tpu_torch.config, chip_smoke\n'
+        'import stp3_tpu_torch.config, chip_smoke, torch_fixtures\n'
         'import stp3_tpu_torch.deploy.agent_core, stp3_tpu_torch.ops.kernels.lift_splat\n'
         'import stp3_tpu_torch.ops.static_splat, stp3_tpu_torch.datas.carla_data\n'
         'import stp3_tpu_torch.datas.nuscenes_data, stp3_tpu_torch.utils.image_io\n'
@@ -486,10 +488,12 @@ def _imports(path):
 
 def test_no_module_of_the_port_nor_chip_smoke_imports_the_jax_side():
     """Read with ast, so a lazy import inside a function counts too; the
-    stand-in data that chip_smoke.py imports (tests/torch_fake_datasets.py)
-    and the test ranks of the multi-process tests
-    (tests/torch_dist_worker.py) are held to the same ban."""
+    configurations and stand-in data that chip_smoke.py imports
+    (tests/torch_fixtures.py, tests/torch_fake_datasets.py) and the test
+    ranks of the multi-process tests (tests/torch_dist_worker.py) are held
+    to the same ban."""
     paths = [os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'tests', 'torch_fixtures.py'),
              os.path.join(REPO, 'tests', 'torch_fake_datasets.py'),
              os.path.join(REPO, 'tests', 'torch_dist_worker.py')]
     for root, _, files in os.walk(os.path.join(REPO, 'stp3_tpu_torch')):
@@ -518,13 +522,10 @@ def _out_of_range_case(dtype=torch.float32):
 
 def test_plain_splats_drop_out_of_range_ranks():
     """A rank outside [0, ncells) adds nothing anywhere, as the kernels and
-    JAX's segment_sum drop it: K1 and the XLA paths' segment sum. Frame 1
-    equals its own points' sums (nothing of frame 0 spills into it)."""
-    from stp3_tpu_torch.ops.bev_pool import _segment_sum
+    JAX's segment_sum drop it: K1 and its plain version. Frame 1 equals its
+    own points' sums (nothing of frame 0 spills into it)."""
     feats, ranks, want = _out_of_range_case()
-    for got in (K1.bev_splat_accumulate(feats, ranks, 3), K1.bev_splat_plain(feats, ranks, 3),
-                _segment_sum(feats, ranks, 3, sort=True),
-                _segment_sum(feats, ranks, 3, sort=False)):
+    for got in (K1.bev_splat_accumulate(feats, ranks, 3), K1.bev_splat_plain(feats, ranks, 3)):
         torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-6)
     # the per-frame entries (F=1) on frame 0 alone
     for entry in (K1.bev_pool_v1, K1.bev_pool_v2):

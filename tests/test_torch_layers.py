@@ -304,13 +304,13 @@ def test_planning_forward_broadcasts_once_per_pyramid():
     TemporalBlocks with pyramid pooling over the whole BEV) takes the
     broadcast route twice a forward, once in each pyramid; the encoder,
     the decoder and every 2x upsample take ``F.interpolate``."""
-    import chip_smoke
+    import torch_fixtures
     from stp3_tpu_torch.layers.base import init_parameters
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
-    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY_WIDTHS,
-                              {'PRECISION': 32})
+    cfg = torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.TINY_WIDTHS,
+                                  {'PRECISION': 32})
     model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
-    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    batch, = torch_fixtures.synthetic_batches(cfg, 1, 'cpu')
     pyramids = [m for m in model.modules()
                 if isinstance(m, TT.TemporalBlock) and m.use_pyramid_pooling]
     assert len(pyramids) == 2

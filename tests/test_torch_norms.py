@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu.layers import convolutions as jconv
 from stp3_tpu.training.trainer import Trainer as JTrainer
@@ -132,8 +132,8 @@ def test_bottleneck_upsample_matches_jax(hw):
 
 
 def _norm_cfg(kind, *overrides):
-    return chip_smoke.stage_cfg('perception', True, {'TIME_RECEPTIVE_FIELD': 2},
-                                {'MODEL': {'NORM': kind}}, *overrides)
+    return torch_fixtures.stage_cfg('perception', True, {'TIME_RECEPTIVE_FIELD': 2},
+                                    {'MODEL': {'NORM': kind}}, *overrides)
 
 
 def test_batch_stats_bridge_is_strict():
@@ -278,7 +278,7 @@ def test_bn_frozen_statistics_stay_out_of_the_optimizer():
         with torch.no_grad():
             b.add_(0.25)
     before = {n: b.clone() for n, b in stats.items()}
-    from chip_smoke import synthetic_batches
+    from torch_fixtures import synthetic_batches
     batch, = synthetic_batches(cfg, 1, 'cpu')
     tr.train_step(batch, dropout=False)
     for name, b in stats.items():

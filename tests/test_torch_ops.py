@@ -88,7 +88,8 @@ BEV_DIM = np.array([10, 10, 1])
 @pytest.mark.parametrize('method', ['sort', 'scatter', 'pallas', 'pallas2'])
 def test_bev_pool_matches_jax_and_the_dense_oracle(method):
     """tests/test_bev_pool.py's points: coords in [-2, 12) on a 10x10 grid,
-    so a fifth fall outside; feats of invalid points are masked first."""
+    so a fifth fall outside; feats of invalid points are masked first. The
+    port's one splat (K1's function at F=1) against each JAX method."""
     rng = np.random.RandomState(3)
     feats = rng.randn(300, 8).astype(np.float32)
     coords = rng.randint(-2, 12, size=(300, 3)).astype(np.int32)
@@ -99,14 +100,11 @@ def test_bev_pool_matches_jax_and_the_dense_oracle(method):
         want = np.asarray(jbev.bev_pool(jnp.asarray(feats), jnp.asarray(coords),
                                         jnp.asarray(valid), BEV_DIM, method=method))
     got = tbev.bev_pool(torch.from_numpy(feats), torch.from_numpy(coords),
-                        torch.from_numpy(valid), BEV_DIM, method=method).numpy()
+                        torch.from_numpy(valid), BEV_DIM).numpy()
     assert got.shape == want.shape == (10, 10, 8)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, tbev.bev_pool_dense_reference(feats, coords, valid, BEV_DIM),
                                rtol=1e-5, atol=1e-5)
-    with pytest.raises(ValueError):
-        tbev.bev_pool(torch.from_numpy(feats), torch.from_numpy(coords),
-                      torch.from_numpy(valid), BEV_DIM, method='pallas3')
 
 
 def _splat_case(seed=2, b=1, s=3):
@@ -125,18 +123,19 @@ def _splat_case(seed=2, b=1, s=3):
 
 @pytest.mark.parametrize('method', ['scatter', 'pallas2b', 'pallas', 'pallas2', 'sort', 'auto'])
 def test_project_to_birds_eye_view_matches_jax(method):
-    """Pre-warp by a real ego-motion chain, voxelise, splat (one K1 launch
-    for 'auto' and 'pallas2b', one per frame for 'pallas' and 'pallas2' on
-    CUDA; the plain versions here), and the discount-0.5 accumulate over
-    S=3 frames. JAX's 'auto' is 'scatter' on the CPU."""
+    """Pre-warp by a real ego-motion chain, voxelise, splat, and the
+    discount-0.5 accumulate over S=3 frames: the port's one splat (one K1
+    launch for all frames on CUDA, its plain version here) against each
+    JAX method (one launch for 'auto' and 'pallas2b', one per frame for
+    'pallas' and 'pallas2', the XLA paths for 'sort' and 'scatter'). JAX's
+    'auto' is 'scatter' on the CPU."""
     feats, geom, ego, (res, start, dim) = _splat_case()
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jbev.project_to_birds_eye_view(
             jnp.asarray(feats), jnp.asarray(geom), jnp.asarray(ego), res, start, dim,
             discount=0.5, method=method))
     got = tbev.project_to_birds_eye_view(torch.from_numpy(feats), torch.from_numpy(geom),
-                                         torch.from_numpy(ego), res, start, dim, 0.5,
-                                         method=method)
+                                         torch.from_numpy(ego), res, start, dim, 0.5)
     assert tuple(got.shape) == want.shape == (1, 3, 16, 16, 8)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.abs(want[:, 0]).sum() > 0 and np.abs(want[:, 2] - want[:, 1]).sum() > 0

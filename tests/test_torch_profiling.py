@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.utils.kalman import KalmanFilter as JKalmanFilter
 from stp3_tpu_torch import train as ttrain
 from stp3_tpu_torch.training.trainer import Trainer
@@ -59,10 +59,11 @@ def test_timed_nan_guard_and_no_server():
 
 
 def _cfg():
-    return chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY, {'PRECISION': 32},
-                               {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini',
-                                            'VAL_SAMPLES': 3},
-                                'N_WORKERS': 0, 'EPOCHS': 1})
+    return torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.TINY,
+                                   {'PRECISION': 32},
+                                   {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini',
+                                                'VAL_SAMPLES': 3},
+                                    'N_WORKERS': 0, 'EPOCHS': 1})
 
 
 @pytest.fixture(scope='module')
@@ -127,10 +128,10 @@ def test_nan_check_stops_before_the_update():
     """One clean step, then a batch with one NaN pixel: FloatingPointError
     naming a loss term, with the parameters, Adam's state and the step
     count as the clean step left them."""
-    cfg = chip_smoke.planning_cfg(tiny=True)
+    cfg = torch_fixtures.planning_cfg(tiny=True)
     cfg.DEBUG.NAN_CHECK = True
     trainer = Trainer(cfg, device='cpu')
-    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    batch, = torch_fixtures.synthetic_batches(cfg, 1, 'cpu')
     trainer.train_step(batch)
     params = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
     adam = trainer.optimizer.state_dict()

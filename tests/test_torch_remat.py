@@ -1,7 +1,7 @@
 """MODEL.REMAT in the port, on the CPU: every stage tag changes what the
 backward stores, never what it computes.
 
-The tiny Planning stage (chip_smoke.planning_cfg(tiny=True): fp32, a
+The tiny Planning stage (torch_fixtures.planning_cfg(tiny=True): fp32, a
 GAUSSIAN latent, 2 future frames, a planner) under MODEL.NORM 'bn', one
 synthetic batch, dropout on and the latent drawn from the trainer's
 generator. From one seeded init, the step under each tag (and under
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import planning_cfg, running_stats, stage_cfg, synthetic_batches
+from torch_fixtures import planning_cfg, running_stats, stage_cfg, synthetic_batches
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.models.stp3 import STP3 as JSTP3
 from stp3_tpu.models.stp3 import STP3Config as JSTP3Config

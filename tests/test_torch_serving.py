@@ -1,7 +1,8 @@
 """The port's serving modes against the JAX package's, on the CPU, fp32,
 with the flax params loaded through from_flax: the fused lift + splat
 model (STP3Config.fused_lift_splat), splat_single_frame, serve_step (with
-ego-motion) and serve_step_static (column and bucket plans), each against
+ego-motion) and serve_step_static (the port's column plan against the JAX
+package's column and bucket plans), each against
 ``model.apply(..., method=...)`` on __graft_entry__._flagship_cfg(tiny=True)
 (b0, 2 cameras at 32x64, 16x16 BEV).
 
@@ -69,10 +70,9 @@ def pair():
                              params).eval()
     rig = (k[0, 0], e[0, 0])
     res, start, dim = tmodel.bev_resolution, tmodel.bev_start_position, tmodel.bev_dimension
-    plans = {'column': (tss.build_column_splat_plan(tmodel.frustum, *rig, res, start, dim),
-                        jss.build_column_splat_plan(tmodel.frustum, *rig, res, start, dim)),
-             'buckets': (tss.build_static_splat_plan(tmodel.frustum, *rig, res, start, dim),
-                         jss.build_static_splat_plan(tmodel.frustum, *rig, res, start, dim))}
+    plans = {'column': jss.build_column_splat_plan(tmodel.frustum, *rig, res, start, dim),
+             'buckets': jss.build_static_splat_plan(tmodel.frustum, *rig, res, start, dim),
+             'port': tss.build_column_splat_plan(tmodel.frustum, *rig, res, start, dim)}
     return dict(cfg=cfg, jmodel=jmodel, params=params, tmodel=tmodel, fused=fused,
                 inputs=(image, k, e, ego), extras=extras, plans=plans)
 
@@ -157,13 +157,13 @@ def test_serve_step_with_motion_matches_jax(pair):
 
 @pytest.mark.parametrize('kind', ['column', 'buckets'])
 def test_serve_step_static_matches_jax(pair, kind):
+    """The port's column plan against the JAX plan of ``kind``."""
     jmodel = pair['jmodel']
     image, _, _, ego, cache, trajs, cmd, tp = _serve_args(pair, motion=True)
-    tplan, jplan = pair['plans'][kind]
+    jplan = pair['plans'][kind]
     jarrays = (jplan.device_arrays() if kind == 'column'
                else jplan.device_buckets())
-    tarrays = (tplan.device_arrays('cpu') if kind == 'column'
-               else tplan.device_buckets('cpu'))
+    tarrays = pair['plans']['port'].device_arrays('cpu')
     args = (image, ego, cache, trajs, cmd, tp)
     want = _np(_run(lambda p, a, plan: jmodel.apply(
         {'params': p}, *a, plan, train=False, method=JSTP3.serve_step_static),

@@ -4,7 +4,7 @@ present distribution, no planner), Prediction_Ber (BERNOULLI), the
 MIXGAUSSIAN and non-probabilistic Prediction stages, the identity
 temporal model at a receptive field of 1 and the uniform lift
 (USE_DEPTH_DISTRIBUTION False). Each at TINY's widths over the stage
-YAML's own switches (chip_smoke.stage_cfg(tiny=True)) at TINY's receptive
+YAML's own switches (torch_fixtures.stage_cfg(tiny=True)) at TINY's receptive
 field of 2, fp32, with the
 same seeded weights on both sides (numpy draws in the JAX model's
 variable tree, loaded into the port through from_flax).
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu.models.stp3 import STP3 as JSTP3
 from stp3_tpu.training.trainer import Trainer as JTrainer
@@ -59,7 +59,7 @@ def case_cfg(name):
     """A case's tiny config, at TINY's receptive field of 2 (a JAX program
     of the Perception train step compiles in half the time of rf 3's)."""
     stage, extra = CASES[name]
-    return chip_smoke.stage_cfg(stage, True, {'TIME_RECEPTIVE_FIELD': 2}, extra)
+    return torch_fixtures.stage_cfg(stage, True, {'TIME_RECEPTIVE_FIELD': 2}, extra)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,19 +167,20 @@ def test_perception_serve_step_matches_the_jax_tail():
                                         ('carla_perception', 'carla/Perception.yml'),
                                         ('prediction_ber', 'nuscenes/Prediction_Ber.yml'),
                                         ('prediction', 'nuscenes/Prediction.yml')])
-def test_chip_smoke_stage_cfgs_are_their_yamls(stage, yaml):
-    """chip_smoke.py's stage configs, as code, against their YAML through the
+def test_torch_fixtures_stage_cfgs_are_their_yamls(stage, yaml):
+    """tests/torch_fixtures.py's stage configs, as code, against their YAML through the
     port's loader (the LR compares as a float: YAML 1.1 reads '1e-3' as a
     string, and both trainers take float(OPTIMIZER.LR)); and the synthetic
     batch of the stage's tiny config byte for byte against the JAX
     package's generator."""
     import argparse
     import os
-    path = os.path.join(os.path.dirname(chip_smoke.__file__), 'stp3_tpu', 'configs', yaml)
+    path = os.path.join(os.path.dirname(os.path.dirname(torch_fixtures.__file__)), 'stp3_tpu',
+                        'configs', yaml)
     want = tconfig.get_cfg(argparse.Namespace(config_file=path, opts=[])).convert_to_dict()
     want['OPTIMIZER']['LR'] = float(want['OPTIMIZER']['LR'])
-    assert chip_smoke.stage_cfg(stage).convert_to_dict() == want
-    cfg = chip_smoke.stage_cfg(stage, True)
+    assert torch_fixtures.stage_cfg(stage).convert_to_dict() == want
+    cfg = torch_fixtures.stage_cfg(stage, True)
     from stp3_tpu.config import get_cfg as jget_cfg
     got = tsyn.collate([tsyn.SyntheticDataset(cfg, 4, 1)[i] for i in (0, 3)])
     jcfg = jget_cfg(cfg_dict=cfg.convert_to_dict())
@@ -226,7 +227,7 @@ def test_refusals_of_what_stays_unported_and_of_what_jax_refuses():
     GT_DEPTH, refused until its port, builds with its uncertainty weight
     (its train step: tests/test_torch_gt_depth.py)."""
     def build(*overrides):
-        return STP3(STP3Config.from_cfg(chip_smoke.stage_cfg('perception', True, *overrides)))
+        return STP3(STP3Config.from_cfg(torch_fixtures.stage_cfg('perception', True, *overrides)))
     assert float(build({'LIFT': {'GT_DEPTH': True}}).depths_weight.detach()) == 0.0
     assert build({'MODEL': {'REMAT': 'encoder+temporal+decoder'}}).remat_stages == {
         'encoder', 'temporal', 'decoder'}

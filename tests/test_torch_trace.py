@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from cardbench import harness
 from cardbench.tracing import Summary
 from stp3_tpu_torch.utils import profiling
@@ -50,11 +50,11 @@ def _inside(inner, outer) -> bool:
 
 @pytest.fixture(scope='module')
 def flagship():
-    cfg = chip_smoke.make_cfg(chip_smoke.FLAGSHIP, chip_smoke.TINY, {'PRECISION': 32})
-    model = chip_smoke.build_model(cfg)
-    (image, k, e, ego), extras = chip_smoke.example_inputs(cfg)
-    args = chip_smoke.to_torch([image, k, e, ego, extras['trajs'], extras['gt_trajs'],
-                                extras['commands'], extras['target_points']], 'cpu')
+    cfg = torch_fixtures.make_cfg(torch_fixtures.FLAGSHIP, torch_fixtures.TINY, {'PRECISION': 32})
+    model = torch_fixtures.build_model(cfg)
+    (image, k, e, ego), extras = torch_fixtures.example_inputs(cfg)
+    args = torch_fixtures.to_torch([image, k, e, ego, extras['trajs'], extras['gt_trajs'],
+                                    extras['commands'], extras['target_points']], 'cpu')
     return model, args
 
 
@@ -66,14 +66,14 @@ def test_no_profiler_records_nothing_and_opens_no_range(flagship):
     assert profiling.stage('b', 'cpu') is off and profiling.stage('c', args[0]) is off
     marks, recorded = profiling._RECORDER.marks, list(profiling._RECORDER.marks)
     with torch.no_grad():
-        chip_smoke.plan_step(model, *args)
+        torch_fixtures.plan_step(model, *args)
     assert profiling._RECORDER.marks is marks and marks == recorded
 
 
 def test_forward_and_plan_give_each_stage_once_a_call(flagship):
     model, args = flagship
     with torch.no_grad():
-        spans, ranges = _window(lambda: chip_smoke.plan_step(model, *args))
+        spans, ranges = _window(lambda: torch_fixtures.plan_step(model, *args))
     assert [s.name for s in spans] == list(STAGES) * 2
     assert all(s.device == 'cpu' and s.end_ns > s.start_ns for s in spans)
     # one after another, none inside another
@@ -89,7 +89,7 @@ def test_agent_tick_gives_its_host_phases_and_the_static_serve_steps_stages():
     from stp3_tpu_torch.deploy.agent_core import AgentCore
     from stp3_tpu_torch.layers.base import init_parameters
     from stp3_tpu_torch.models.stp3 import STP3, STP3Config
-    cfg = chip_smoke.make_cfg(chip_smoke.TINY, {
+    cfg = torch_fixtures.make_cfg(torch_fixtures.TINY, {
         'BATCHSIZE': 1, 'PRECISION': 32,
         'IMAGE': {'FINAL_DIM': (64, 64), 'NAMES': ['A', 'B', 'C', 'D']}})
     model = init_parameters(STP3(STP3Config.from_cfg(cfg)), torch.Generator().manual_seed(0))
@@ -124,9 +124,9 @@ def test_agent_tick_gives_its_host_phases_and_the_static_serve_steps_stages():
 
 def test_train_step_gives_forward_backward_update_with_the_models_stages_inside():
     from stp3_tpu_torch.training.trainer import Trainer
-    cfg = chip_smoke.planning_cfg(tiny=True)
+    cfg = torch_fixtures.planning_cfg(tiny=True)
     trainer = Trainer(cfg, device='cpu')
-    batch, = chip_smoke.synthetic_batches(cfg, 1, 'cpu')
+    batch, = torch_fixtures.synthetic_batches(cfg, 1, 'cpu')
     trainer.train_step(batch)
     spans, ranges = _window(lambda: trainer.train_step(batch))
     assert _counts(s.name for s in spans) == {

@@ -1,6 +1,6 @@
 """The port's training step against the JAX package's, on the CPU.
 
-The tiny Planning-stage configuration (chip_smoke.planning_cfg(tiny=True):
+The tiny Planning-stage configuration (torch_fixtures.planning_cfg(tiny=True):
 __graft_entry__._flagship_cfg(tiny=True)'s widths with Planning.yml's
 switches, REMAT 'encoder', fp32), one synthetic batch of two samples,
 the JAX trainer's seeded init loaded into the port through from_flax.
@@ -39,7 +39,7 @@ import optax
 import pytest
 import torch
 
-from chip_smoke import planning_cfg
+from torch_fixtures import planning_cfg
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu.training.trainer import Trainer as JTrainer
@@ -253,7 +253,7 @@ def test_float64_reference_step_runs_on_the_cpu():
     step, and gradients that differ from its fp32 ones only by fp32's
     resolution (median over the parameters, which a ReLU flip cannot move
     far)."""
-    from chip_smoke import step_grads, synthetic_batches
+    from torch_fixtures import step_grads, synthetic_batches
     cfg = planning_cfg(tiny=True)
     tr = Trainer(cfg, device='cpu', seed=0)
     ref_cfg = cfg.clone()

@@ -36,8 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
-from chip_smoke import planning_cfg, running_stats, synthetic_batches
+import torch_fixtures
+from torch_fixtures import planning_cfg, running_stats, synthetic_batches
 from stp3_tpu_torch import train as ttrain
 from stp3_tpu_torch.datas.synthetic import SyntheticDataset, collate
 from stp3_tpu_torch.layers.base import init_parameters
@@ -297,10 +297,12 @@ def test_train_run_restores_before_the_first_compiled_call(tmp_path, monkeypatch
     monkeypatch.setattr(ckpt_lib, 'load_checkpoint',
                         lambda *a, **k: events.append(('load',)) or load(*a, **k))
     monkeypatch.setattr(graphs.CompiledStep, '__call__', spy_call)
-    cfg = chip_smoke.make_cfg(chip_smoke.PLANNING_STAGE, chip_smoke.TINY, {'PRECISION': 32},
-                              {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini',
-                                           'VAL_SAMPLES': 2}, 'N_WORKERS': 0, 'EPOCHS': 1,
-                               'LOG_DIR': str(tmp_path), 'PRETRAINED': {'LOAD_WEIGHTS': False}})
+    cfg = torch_fixtures.make_cfg(torch_fixtures.PLANNING_STAGE, torch_fixtures.TINY,
+                                  {'PRECISION': 32},
+                                  {'DATASET': {'NAME': 'synthetic', 'VERSION': 'mini',
+                                               'VAL_SAMPLES': 2}, 'N_WORKERS': 0, 'EPOCHS': 1,
+                                   'LOG_DIR': str(tmp_path),
+                                   'PRETRAINED': {'LOAD_WEIGHTS': False}})
     first = ttrain.run(cfg, 'cpu', log=lambda msg: None)
     assert events[0][0] == 'call'
     events.clear()

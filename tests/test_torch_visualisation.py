@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import torch_fixtures
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.utils import visualisation as JV
 from stp3_tpu_torch.utils import visualisation as V
@@ -23,7 +23,7 @@ B, S, H, W = 1, 3, 24, 20
 
 
 def _cfg():
-    return chip_smoke.planning_cfg(tiny=True)
+    return torch_fixtures.planning_cfg(tiny=True)
 
 
 def _data(seed: int, cameras: int = 2):
@@ -133,7 +133,7 @@ def test_save_eval_panel_equals_jax(tmp_path, monkeypatch):
 def test_panels_import_no_matplotlib():
     """``visualise_output`` in a fresh process leaves matplotlib unimported."""
     code = '\n'.join([
-        'import sys', 'import numpy as np', 'import chip_smoke',
+        'import sys', 'import numpy as np', 'sys.path.insert(0, "tests")', 'import torch_fixtures',
         'from stp3_tpu_torch.utils.visualisation import visualise_output',
         'rng = np.random.RandomState(0)',
         "labels = {'segmentation': rng.randint(0, 2, (1, 2, 8, 8)),",
@@ -142,7 +142,7 @@ def test_panels_import_no_matplotlib():
         "output = {'segmentation': rng.randn(1, 2, 8, 8, 2), 'hdmap': rng.randn(1, 8, 8, 4),",
         "          'instance_center': rng.rand(1, 2, 8, 8, 1),",
         "          'instance_offset': rng.randn(1, 2, 8, 8, 2)}",
-        'panel = visualise_output(labels, output, chip_smoke.planning_cfg(tiny=True))',
+        'panel = visualise_output(labels, output, torch_fixtures.planning_cfg(tiny=True))',
         'assert panel.shape == (2, 56, 16, 3), panel.shape',
         "assert not [m for m in sys.modules if m.split('.')[0] == 'matplotlib']"])
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

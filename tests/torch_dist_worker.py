@@ -22,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-import chip_smoke  # noqa: E402
+import torch_fixtures  # noqa: E402
 from stp3_tpu_torch import losses  # noqa: E402
 from stp3_tpu_torch import train as ttrain  # noqa: E402
 from stp3_tpu_torch.datas.synthetic import NumpyLoader, SyntheticDataset, collate  # noqa: E402
@@ -38,8 +38,8 @@ SEED = 0
 def dp_cfg(norm: str):
     """The Prediction stage (instance and flow heads: spatial regression
     losses; GAUSSIAN latent; REMAT 'encoder') at TINY's widths, float64."""
-    return chip_smoke.stage_cfg('prediction', True, {'MODEL': {'NORM': norm},
-                                                     'PRECISION': 64})
+    return torch_fixtures.stage_cfg('prediction', True, {'MODEL': {'NORM': norm},
+                                                         'PRECISION': 64})
 
 
 def global_batch(cfg):
@@ -76,7 +76,7 @@ def dp_step(cfg, group=None) -> dict:
     trainer.apply_gradients()
     return {'loss': {k: v.item() for k, v in loss.items()}, 'grads': grads,
             'params': {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
-            'stats': chip_smoke.running_stats(trainer.model)}
+            'stats': torch_fixtures.running_stats(trainer.model)}
 
 
 def val_metrics(cfg, batch_size: int, group=None) -> dict:
@@ -120,7 +120,7 @@ def cli_cfg(log_dir: str, batch_size: int, epochs: int = 1, resume: str = ''):
     """``train.run``'s config: the tiny Prediction stage without a latent
     draw, float64, 'mini' synthetic data (10 training samples: 2 steps an
     epoch at a global batch of 4), 5 validation samples (a ragged tail)."""
-    return chip_smoke.stage_cfg('prediction', True, {
+    return torch_fixtures.stage_cfg('prediction', True, {
         'PRECISION': 64, 'BATCHSIZE': batch_size, 'EPOCHS': epochs, 'LOG_DIR': log_dir,
         'N_WORKERS': 0, 'PROBABILISTIC': {'ENABLED': False},
         'PRETRAINED': {'LOAD_WEIGHTS': False},
@@ -170,18 +170,18 @@ def cam_cfg():
     is rank 1 at 2 and at 3 ranks), fp32."""
     names = ['CAM_FRONT_LEFT', 'CAM_BACK_LEFT', 'CAM_BACK', 'CAM_FRONT', 'CAM_BACK_RIGHT',
              'CAM_FRONT_RIGHT']
-    return chip_smoke.make_cfg(chip_smoke.FLAGSHIP, chip_smoke.TINY,
-                               {'IMAGE': {'FINAL_DIM': (32, 64), 'NAMES': names}})
+    return torch_fixtures.make_cfg(torch_fixtures.FLAGSHIP, torch_fixtures.TINY,
+                                   {'IMAGE': {'FINAL_DIM': (32, 64), 'NAMES': names}})
 
 
 def cam_inputs(model, cfg, device='cpu', dtype=torch.float32):
     """The forward's (image, K, E, ego), the planner's (trajs, gt_trajs,
     commands, target_points) and a seeded BEV cache of the past frames."""
-    (image, k, e, ego), ex = chip_smoke.example_inputs(cfg)
-    fwd = chip_smoke.to_torch((image, k, e, ego), device)
+    (image, k, e, ego), ex = torch_fixtures.example_inputs(cfg)
+    fwd = torch_fixtures.to_torch((image, k, e, ego), device)
     fwd[0] = fwd[0].to(dtype)
-    plan = chip_smoke.to_torch((ex['trajs'], ex['gt_trajs'], ex['commands'],
-                                ex['target_points']), device, dtype)
+    plan = torch_fixtures.to_torch((ex['trajs'], ex['gt_trajs'], ex['commands'],
+                                    ex['target_points']), device, dtype)
     nx, ny = model.cfg.bev_size
     cache = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
         1, model.cfg.receptive_field - 1, nx, ny, model.cfg.encoder_out_channels)
@@ -200,8 +200,8 @@ def cam_calls(model, cfg, group) -> dict:
                                          model.bev_dimension).device_arrays('cpu')
         with torch.no_grad():
             return {'forward': model(image, k, e, ego),
-                    'plan': chip_smoke.plan_step(model, image, k, e, ego, trajs, gt, cmd,
-                                                 target)[1],
+                    'plan': torch_fixtures.plan_step(model, image, k, e, ego, trajs, gt, cmd,
+                                                     target)[1],
                     'serve': model.serve_step(*present, ego, cache, trajs, cmd, target),
                     'static': model.serve_step_static(image[:, -1], ego, cache, trajs, cmd,
                                                       target, arrays)}
@@ -221,7 +221,7 @@ def cam_rank(out_dir: str) -> dict:
     mesh.maybe_initialize_multihost('cpu')
     rank = mesh.process_index(mesh.data_group())
     cfg = cam_cfg()
-    model = chip_smoke.build_model(cfg)
+    model = torch_fixtures.build_model(cfg)
     result = {}
     for k in (2, 3):
         group = serving.cam_mesh(k)

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import example_inputs
+from torch_fixtures import example_inputs
 from stp3_tpu.config import get_cfg as jax_get_cfg
 from stp3_tpu.layers.convolutions import set_bn_momentum, set_default_norm
 from stp3_tpu.models.stp3 import STP3 as JSTP3
@@ -123,7 +123,7 @@ def port_model(cfg, variables):
 
 
 def inputs_of(cfg, b=2):
-    """The example rig and images of chip_smoke.py at batch ``b``."""
+    """The example rig and images of tests/torch_fixtures.py at batch ``b``."""
     return [np.asarray(a) for a in example_inputs(cfg, b=b)[0]]
 
 
